@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
-"""Where a render's time goes on the card: torch.profiler over the port's
-main path (chip_smoke.py's scene, model and config), one CUDA device.
+"""Where a render's or a train step's time goes on the card: torch.profiler
+over the port's paths (chip_smoke.py's scene, model and config), one CUDA
+device.
 
-    python3 scripts_dev/profile_render_torch.py [--out outputs/render_trace.json]
+    python3 scripts_dev/profile_render_torch.py [--train] [--out outputs/render_trace.json]
 
-Prints the wall time per camera of the profiled window, the device's busy
-share (the sum of every kernel's device time over wall time; everything runs
-on one stream, so kernels do not overlap), the kernels with the most device
-time and the ops with the most host time, and writes a Chrome trace.
+Without --train it profiles a render of the 4 cameras; with --train, 4
+`train_step`s (one per camera, from step 3000, after 8 warm-up steps) on
+chip_smoke.py's targets. Prints the wall time per camera (or step) of the
+profiled window, the device's busy share (the sum of every kernel's device
+time over wall time; everything runs on one stream, so kernels do not
+overlap), the kernels with the most device time and the ops with the most
+host time, and writes a Chrome trace.
 """
 from __future__ import annotations
 
@@ -26,12 +30,15 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="outputs/render_trace.json")
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--train", action="store_true", help="profile train steps, not renders")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_render_torch: needs a CUDA device", file=sys.stderr)
         return 2
     from splat_tpu_torch.cameras import optimizers as cam_opt
+    from splat_tpu_torch.engine import trainer
     from splat_tpu_torch.models import splatfacto as sf
+    from splat_tpu_torch.models import strategy
     from splat_tpu_torch.models.convert import cameras_from_numpy, params_from_numpy
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -45,33 +52,57 @@ def main() -> int:
     bg = sf.background_color(params, cfg)
     n = chip_smoke.N_CAMERAS
 
-    def render_all():
-        for i in range(n):
-            sf.render_camera(params, cams[i], cfg, cfg.sh_degree, bg)
+    if args.train:
+        target = params_from_numpy(chip_smoke.target_tree(), device=dev)
+        with torch.no_grad():
+            gts = [sf.gamma_encode(sf.render_camera(target, cams[i], cfg, cfg.sh_degree,
+                                                    sf.background_color(target, cfg)).rgb, cfg)
+                   for i in range(n)]
+        del target
+        opt = trainer.Optimizer(params, trainer.TrainerConfig())
+        state = [strategy.init_strategy_state(chip_smoke.N_GAUSS, device=dev)]
+        step = [chip_smoke.TRAIN_START]
 
-    with torch.no_grad():
-        render_all()
-        render_all()
+        def run_all():
+            for i in range(n):
+                _, _, state[0] = trainer.train_step(params, opt, state[0], cfg, cams[i], gts[i],
+                                                    step[0])
+                step[0] += 1
+    else:
+        def run_all():
+            with torch.no_grad():
+                for i in range(n):
+                    sf.render_camera(params, cams[i], cfg, cfg.sh_degree, bg)
+
+    for _ in range(2):
+        run_all()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run_all()
         torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            render_all()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
+        wall_us = (time.perf_counter() - t0) * 1e6
     avgs = prof.key_averages()
-    # device-side events only: an aten op also reports its kernels' time
-    kernels = [e for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA]
+    # device-side events only: an aten op also reports its kernels' time. A
+    # record_function range (Adam's "Optimizer.step#Adam.step") shows up on
+    # the device too, spanning its kernels; it has a host event of the same
+    # name, which no kernel has, so those are left out
+    host_keys = {e.key for e in avgs if e.device_type == torch.autograd.DeviceType.CPU}
+    kernels = [e for e in avgs if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in host_keys]
     device_us = sum(e.self_device_time_total for e in kernels)
     host_ops = sum(e.count for e in avgs if e.key.startswith("aten::"))
     print(f"card: {chip_smoke.nvidia_smi('name,power.limit')}")
-    print(f"profiled: {n} cameras, wall {wall_us / n / 1e3:.3f} ms/camera, device busy "
-          f"{device_us / n / 1e3:.3f} ms/camera = {device_us / wall_us:.1%} of wall; "
-          f"{host_ops / n:.0f} aten op calls/camera")
-    print(f"top {args.top} kernels by device time (ms per camera, calls per camera):")
+    unit = "step" if args.train else "camera"
+    print(f"profiled: {n} {unit}s, wall {wall_us / n / 1e3:.3f} ms/{unit}, device busy "
+          f"{device_us / n / 1e3:.3f} ms/{unit} = {device_us / wall_us:.1%} of wall; "
+          f"{host_ops / n:.0f} aten op calls/{unit}, "
+          f"{sum(e.count for e in kernels) / n:.0f} kernels/{unit}")
+    print(f"top {args.top} kernels by device time (ms per {unit}, calls per {unit}):")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:args.top]:
         print(f"  {e.self_device_time_total / n / 1e3:9.4f}  {e.count / n:7.1f}  {e.key[:90]}")
-    print(f"top {args.top} by host self time (ms per camera, calls per camera):")
+    print(f"top {args.top} by host self time (ms per {unit}, calls per {unit}):")
     for e in sorted(avgs, key=lambda e: -e.self_cpu_time_total)[:args.top]:
         print(f"  {e.self_cpu_time_total / n / 1e3:9.4f}  {e.count / n:7.1f}  {e.key[:90]}")
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)

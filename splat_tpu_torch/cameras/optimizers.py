@@ -6,7 +6,8 @@
   * velocity: v' = prior + dv, omega' = prior_omega + dom; with
     `zero_initial_velocities` the prior is dropped and (dv, dom) are absolute.
 
-Parameters are plain dicts of tensors, routed by `Cameras.cam_idx`.
+Parameters are plain dicts of tensors, routed by `Cameras.cam_idx` through a
+one-hot weighted sum, whose backward is dense too: no scatter-add.
 """
 from __future__ import annotations
 
@@ -70,14 +71,21 @@ def init_velocity_opt_params(num_cameras: int, cfg: VelocityOptConfig,
     }
 
 
+def _rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[idx] as a one-hot weighted sum over the table's rows: exact for
+    finite tables (no TF32 rounding can enter), and its gradient is a dense
+    product rather than an accumulating index_put_."""
+    onehot = torch.nn.functional.one_hot(idx.long(), table.shape[0]).to(table.dtype)
+    return (onehot[..., None] * table).sum(dim=-2)
+
+
 def apply_camera_opt(cameras: Cameras, params: dict[str, torch.Tensor],
                      cfg: CameraOptConfig) -> Cameras:
     """Apply per-camera pose corrections, routed by cam_idx."""
     if cfg.mode == "off" or not params:
         return cameras
-    idx = cameras.cam_idx.long()
-    phi = params["phi"][idx]
-    dp = params["dp"][idx]
+    phi = _rows(params["phi"], cameras.cam_idx)
+    dp = _rows(params["dp"], cameras.cam_idx)
     if cfg.mode == "SO3xR3":
         R, p = se3.pose_delta_so3xr3(cameras.R_c2w, cameras.p_c2w, phi, dp)
     elif cfg.mode == "SE3":
@@ -94,11 +102,20 @@ def apply_velocity_opt(cameras: Cameras, params: dict[str, torch.Tensor],
     """Apply per-camera velocity corrections (or absolute learned velocities)."""
     if not cfg.enabled or not params:
         return cameras
-    idx = cameras.cam_idx.long()
-    dv = params["dv"][idx]
-    dom = params["dom"][idx]
+    dv = _rows(params["dv"], cameras.cam_idx)
+    dom = _rows(params["dom"], cameras.cam_idx)
     if cfg.zero_initial_velocities:
         lin, ang = dv, dom
     else:
         lin, ang = cameras.lin_vel + dv, cameras.ang_vel + dom
     return dataclasses.replace(cameras, lin_vel=lin, ang_vel=ang)
+
+
+def camera_opt_penalty(params: dict[str, torch.Tensor], cfg: CameraOptConfig,
+                       device: torch.device | str | None = None) -> torch.Tensor:
+    """L2 penalty on the pose deltas: trans * sum(dp^2) + rot * sum(phi^2)
+    (0 on `device` when the optimizer is off)."""
+    if cfg.mode == "off" or not params:
+        return torch.zeros((), device=device)
+    return (cfg.trans_l2_penalty * torch.sum(params["dp"] ** 2)
+            + cfg.rot_l2_penalty * torch.sum(params["phi"] ** 2))

@@ -11,8 +11,12 @@ rolling-shutter time, and the linear-space blur average. Three blur modes:
   * exact: re-project and re-bin at every sub-frame pose;
   * one sample (blur_samples <= 1): a single render at mid-exposure.
 
-The config keeps the render fields of the JAX config; the loss, densification
-and sharding fields come with the training slice.
+`compute_losses` is the training loss (black level, L1, SSIM, the scale-ratio
+regulariser and the camera-optimizer penalty) and `binning_counts` the
+unclamped per-tile populations the adaptive tile capacity reads.
+
+The config keeps the render and loss fields of the JAX config; the
+densification, resolution and sharding fields come with the trainer slice.
 """
 from __future__ import annotations
 
@@ -25,8 +29,9 @@ import torch
 from ..cameras import optimizers as cam_opt
 from ..cameras.cameras import Cameras
 from ..device import resolve_device
-from ..ops import projection, rasterize, se3, sh
+from ..ops import projection, rasterize, se3, sh, tiling
 from ..ops.reference import RenderOutput
+from ..ops.ssim import ssim as ssim_fn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,10 +47,14 @@ class SplatfactoConfig:
     sh_degree: int = 3
     sh_degree_interval: int = 1000
     rasterize_mode: str = "antialiased"        # antialiased | classic
+    use_scale_regularization: bool = True
+    max_gauss_ratio: float = 10.0
     camera_optimizer: cam_opt.CameraOptConfig = cam_opt.CameraOptConfig()
     camera_velocity_optimizer: cam_opt.VelocityOptConfig = cam_opt.VelocityOptConfig()
     optimize_eval_cameras: bool = False
     optimize_eval_velocities: bool = True
+    ssim_lambda: float = 0.2
+    scale_reg_weight: float = 0.1
     tile_size: int | tuple[int, int] = 16      # int (square) or (w, h)
     max_per_tile: int = 256                    # per-tile depth-list capacity
     max_tiles_per_gaussian: int = 16           # footprint cap (span^2 tiles)
@@ -232,8 +241,10 @@ def camera_motion(params: ModelParams, camera: Cameras, config: SplatfactoConfig
 
 
 def subframe_inputs(params: ModelParams, motion: CameraMotion, config: SplatfactoConfig,
-                    sh_degree_active, t_s) -> tuple[projection.ProjectedGaussians, torch.Tensor]:
-    """Projection and view-dependent colours at the pose of exposure time t_s."""
+                    sh_degree_active, t_s, means2d_probe: torch.Tensor | None = None,
+                    ) -> tuple[projection.ProjectedGaussians, torch.Tensor]:
+    """Projection and view-dependent colours at the pose of exposure time t_s.
+    means2d_probe (C, 2), if given, is added to the projected means."""
     g = params.gaussians
     cam = motion.camera
     Rt, pt = se3.se3_advance_c2w(motion.R0, motion.p0, motion.lin_vel, motion.ang_vel, t_s)
@@ -246,6 +257,8 @@ def subframe_inputs(params: ModelParams, motion: CameraMotion, config: Splatfact
         lin_vel=motion.lin_vel if vel else None,
         ang_vel=motion.ang_vel if vel else None,
     )
+    if means2d_probe is not None:
+        proj = proj._replace(means2d=proj.means2d + means2d_probe)
     if config.rasterize_mode == "classic":
         proj = proj._replace(compensations=torch.ones_like(proj.compensations))
     dirs = g.means - pt
@@ -261,9 +274,14 @@ def render_camera(
     sh_degree_active,
     background: torch.Tensor,
     is_eval_camera: bool = False,
+    means2d_probe: torch.Tensor | None = None,
 ) -> RenderOutput:
     """Render one camera (leading dim 1) with the full method; returns the
-    linear-space blur average and the mid-exposure depth."""
+    linear-space blur average and the mid-exposure depth.
+
+    means2d_probe: optional (C, 2) zeros added to every sub-frame's projected
+    means; its gradient is the accumulated screen-space positional gradient
+    the densification statistics read."""
     motion = camera_motion(params, camera, config, is_eval_camera)
     g = params.gaussians
     opac = torch.sigmoid(g.opacities_logit) * g.alive.detach()
@@ -276,7 +294,8 @@ def render_camera(
     eps = motion.eps
 
     def render_subframe(t_s):
-        proj, colors = subframe_inputs(params, motion, config, sh_degree_active, t_s)
+        proj, colors = subframe_inputs(params, motion, config, sh_degree_active, t_s,
+                                       means2d_probe)
         return rasterize.rasterize(proj, colors, opac, w, h, background,
                                    rolling_shutter_time=motion.rs_time, **raster_kw)
 
@@ -292,7 +311,8 @@ def render_camera(
         for a in range(n_a):
             eps_g = eps[offsets[a]:offsets[a] + sizes[a]]
             t_a = eps_g.mean()
-            proj, colors = subframe_inputs(params, motion, config, sh_degree_active, t_a)
+            proj, colors = subframe_inputs(params, motion, config, sh_degree_active, t_a,
+                                           means2d_probe)
             in_group = offsets[a] <= mid_global < offsets[a] + sizes[a]
             if in_group:
                 mid_anchor = a
@@ -344,3 +364,60 @@ def apply_black_level(img: torch.Tensor, config: SplatfactoConfig) -> torch.Tens
     if m <= 0:
         return img
     return torch.clamp(img, min=m)
+
+
+def binning_counts(params: ModelParams, camera: Cameras, config: SplatfactoConfig) -> torch.Tensor:
+    """Unclamped per-tile depth-list populations (T,) int32 at the
+    mid-exposure pose, with the camera and velocity corrections, the motion
+    pad and the conic cull of the render's binning: `counts >
+    config.max_per_tile` is the overflow the next step's rasterizer drops."""
+    g = params.gaussians
+    motion = camera_motion(params, camera, config)
+    cam = motion.camera
+    R_cw = motion.R0.T
+    vel = motion.use_motion
+    proj = projection.project_gaussians(
+        g.means, torch.exp(g.scales_log), g.quats, R_cw, -torch.matmul(R_cw, motion.p0),
+        cam.fx[0], cam.fy[0], cam.cx[0], cam.cy[0], cam.width, cam.height,
+        lin_vel=motion.lin_vel if vel else None, ang_vel=motion.ang_vel if vel else None,
+    )
+    comp = (torch.ones_like(proj.compensations) if config.rasterize_mode == "classic"
+            else proj.compensations)
+    op_eff = torch.sigmoid(g.opacities_logit) * g.alive * comp * proj.valid.to(comp.dtype)
+    t_max = torch.amax(torch.abs(motion.eps)) + 0.5 * torch.abs(motion.rs_time)
+    return tiling.tile_population(
+        proj.means2d, proj.extents, proj.depths, proj.valid, cam.width, cam.height,
+        config.tile_size, config.max_tiles_per_gaussian,
+        radius_pad=torch.abs(proj.pix_vels) * t_max, conics=proj.conics, opacities=op_eff,
+    )
+
+
+def compute_losses(pred_rgb: torch.Tensor, gt_rgb: torch.Tensor, params: ModelParams,
+                   config: SplatfactoConfig) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """(1 - l) L1 + l (1 - SSIM) on the black-levelled images, plus the
+    scale-ratio regulariser over alive Gaussians and the camera-optimizer
+    penalty. Returns (loss, aux) with aux holding each term and the loss."""
+    pred = apply_black_level(pred_rgb, config)
+    gt = apply_black_level(gt_rgb, config)
+    l1 = torch.abs(pred - gt).mean()
+    ssim_val = ssim_fn(pred, gt)
+    loss = (1.0 - config.ssim_lambda) * l1 + config.ssim_lambda * (1.0 - ssim_val)
+    aux = {"l1": l1, "ssim": ssim_val}
+    if config.use_scale_regularization:
+        g = params.gaussians
+        s = torch.exp(g.scales_log)
+        # amax / amin split the gradient evenly between tied scales, as
+        # jnp.max / jnp.min do (isotropic seeds tie all three)
+        ratio = torch.amax(s, dim=-1) / torch.clamp(torch.amin(s, dim=-1), min=1e-12)
+        excess = torch.clamp(ratio, min=config.max_gauss_ratio) - config.max_gauss_ratio
+        alive = g.alive.detach()
+        n_alive = torch.clamp(alive.sum(), min=1.0)
+        scale_reg = config.scale_reg_weight * ((excess * alive).sum() / n_alive)
+        loss = loss + scale_reg
+        aux["scale_reg"] = scale_reg
+    pen = cam_opt.camera_opt_penalty(params.camera_opt, config.camera_optimizer,
+                                     device=pred.device)
+    loss = loss + pen
+    aux["camera_opt_penalty"] = pen
+    aux["loss"] = loss
+    return loss, aux

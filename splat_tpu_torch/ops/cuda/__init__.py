@@ -3,9 +3,12 @@
 `rasterize_tiles` packs one parameter row per Gaussian, fetches each tile's
 contiguous run of the depth-sorted stream with `seg_copy`, composites every
 tile and sub-frame with `rasterize_fwd`, and reshapes to per-tile images.
-Forward only: the CUDA kernels have no backward in this slice and raise
-NotImplementedError when asked for a gradient; the plain versions on CPU
-tensors stay differentiable by autograd.
+
+Both steps carry their own backward, and neither scatter-adds: the
+compositor's is the `rasterize_bwd` kernel, and the fetch's maps each slot's
+gradient back to its Gaussian by a gather over the binning's slot <-> entry
+bijection (`TileLists.entry_slots`), as the JAX package's `_gather_table`
+does. So the route's backward is deterministic and uses no float atomics.
 """
 from __future__ import annotations
 
@@ -48,12 +51,40 @@ def sorted_stream(table: torch.Tensor, sorted_ids: torch.Tensor, k_pad: int) -> 
     return torch.cat([sp, sp.new_zeros((k_pad, sp.shape[1]))], dim=0)
 
 
-def gather_table(table: torch.Tensor, sorted_ids: torch.Tensor, starts: torch.Tensor,
-                 k_pad: int, impl: str = "auto") -> torch.Tensor:
+class _GatherTable(torch.autograd.Function):
+    """Forward: the sorted stream and `seg_copy`. Backward: the gather form of
+    `_gather_table_bwd`: the slot gradients, plus one zero row for dropped
+    entries, are gathered at `entry_slots` (one per candidate entry, N * M)
+    and summed over each Gaussian's M entries in a fixed order."""
+
+    @staticmethod
+    def forward(ctx, table, sorted_ids, starts, entry_slots, k_pad, impl):
+        ctx.save_for_backward(entry_slots)
+        ctx.n_rows = table.shape[0]
+        return _seg_copy(sorted_stream(table, sorted_ids, k_pad), starts, k_pad, impl=impl)
+
+    @staticmethod
+    def backward(ctx, g):
+        (entry_slots,) = ctx.saved_tensors
+        n = ctx.n_rows - 1                                      # table row n = pad
+        width = g.shape[2]
+        d_slots = torch.cat([g.reshape(-1, width), g.new_zeros((1, width))])
+        d_table = g.new_zeros((ctx.n_rows, width))
+        if n > 0:
+            d_entries = d_slots[entry_slots.long()]             # (N * M, 16)
+            d_table[:n] = d_entries.reshape(n, -1, width).sum(dim=1)
+        return d_table, None, None, None, None, None
+
+
+def gather_table(table: torch.Tensor, lists: tiling.TileLists, k_pad: int,
+                 impl: str = "auto") -> torch.Tensor:
     """Per-tile parameter blocks (T, k_pad, 16) straight from sorted order
-    (the forward of the JAX package's `_gather_table`). Rows past a tile's
-    count are its neighbours' rows; the compositor masks them by count."""
-    return _seg_copy(sorted_stream(table, sorted_ids, k_pad), starts, k_pad, impl=impl)
+    (the port of the JAX package's `_gather_table`). Rows past a tile's count
+    are its neighbours' rows; the compositor masks them by count and gives
+    them zero gradient. k_pad must be the binning's max_per_tile, the K of
+    `lists.entry_slots`."""
+    return _GatherTable.apply(table, lists.sorted_ids, lists.starts, lists.entry_slots,
+                              k_pad, impl)
 
 
 def composite_output(out: torch.Tensor, tile_size, reduce_mean: bool = False,
@@ -106,7 +137,7 @@ def rasterize_tiles(
     Returns composite_output's tuple."""
     tw, _ = tiling.num_tiles(img_w, img_h, tile_size)
     table = pack_param_table(proj, colors, opacities)
-    blocks = gather_table(table, lists.sorted_ids, lists.starts, max_per_tile, impl=impl)
+    blocks = gather_table(table, lists, max_per_tile, impl=impl)
     out = rasterize_fwd(blocks, lists.counts, rs_time, tile_size, tw,
                         rs_full_height or img_h, row_offset=rs_row_offset, eps=eps,
                         impl=impl)

@@ -12,10 +12,11 @@
 // Outputs per tile and sample: rgb, depth_acc and final T (rows 0-4; the
 // TPU kernel's zero pad rows 5-7 are left out).
 //
-// Bound on this card: operations. Each (Gaussian, pixel, sample) pair costs
-// one expf on the special-function units plus about 17 FP32 operations, and
-// each (Gaussian, pixel) about 30 more for the sigma coefficients; the bytes
-// (the tile's rows once, T x S x 5 x npix floats out) are small beside that.
+// Bound on this card: operations. Each live (Gaussian, pixel, sample) pair
+// costs about 5 FP32 operations for sigma, each pair that composites one expf
+// on the special-function units and about 12 more, each live (Gaussian,
+// pixel) about 23 for the sigma coefficients; the bytes (the tile's rows
+// once, T x S x 5 x npix floats out) are small beside that.
 //
 // Design: one block per tile, one thread per pixel (256 for 16x16 tiles, 128
 // for 16x8). The TPU kernel's log-space matmul prefix becomes the plain

@@ -1,11 +1,16 @@
-"""Forward compositing kernel: the port of the default TPU forward
-`splat_tpu/ops/pallas/rasterize_kernels_gmajor.py::rasterize_fwd_gpacked_rowin`.
+"""Compositing kernels: the port of the default TPU forward
+`splat_tpu/ops/pallas/rasterize_kernels_gmajor.py::rasterize_fwd_gpacked_rowin`
+and of the analytic backward `splat_tpu/ops/pallas/rasterize_kernels.py::
+rasterize_bwd_packed`.
 
 `rasterize_fwd` composites every tile for all S blur sub-frames from the
 per-tile (T, K, P) parameter blocks (P = 16: the 13 columns of
 `pack_param_table`, zero-padded for 16-byte loads). On a CUDA tensor it
 launches `csrc/rasterize_fwd.cu`; on a CPU tensor it runs
-`rasterize_fwd_plain`, the same recurrence in plain PyTorch.
+`rasterize_fwd_plain`, the same recurrence in plain PyTorch. It is a
+`torch.autograd.Function` whose backward is `rasterize_bwd`: the kernel
+`csrc/rasterize_bwd.cu` on CUDA tensors, `rasterize_bwd_plain` on CPU
+tensors (and both plain versions under impl="torch").
 
 Output (T, S, NOUT, npix): rows 0-2 rgb, 3 depth_acc, 4 final transmittance
 (the TPU kernel's zero rows 5-7 are left out).
@@ -28,6 +33,8 @@ NOUT = 5
 MAX_SAMPLES = 16  # the kernel's compile-time limit on S
 MAX_TILE_PIXELS = 256
 LOG_THRESH = math.log(ALPHA_THRESH)
+LOG_MAX_ALPHA = math.log(MAX_ALPHA)
+WARP = 32
 
 
 def scalar_vec(rs_time, row_offset, eps: torch.Tensor | None,
@@ -39,29 +46,16 @@ def scalar_vec(rs_time, row_offset, eps: torch.Tensor | None,
                       scalar_tensor(row_offset, device).reshape(1), eps.reshape(-1)])
 
 
-def rasterize_fwd_plain(params: torch.Tensor, counts: torch.Tensor,
-                        scalars: torch.Tensor, tile_size, tiles_x: int,
-                        img_h: int, count_work: bool = False):
-    """Plain PyTorch version of the kernel: a loop over the K slots, batched
-    over tiles, samples and pixels, with the kernel's arithmetic in the same
-    order (each product and sum rounded once). Differentiable by autograd.
-
-    count_work=True also returns the work these inputs need, as a dict:
-    `live_pairs`, the (Gaussian, pixel, sample) steps taken while the pixel's
-    T > T_EPS; `live_row_pixels`, the (Gaussian, pixel) steps taken while any
-    sample of the pixel has T > T_EPS (each needs the sigma coefficients);
-    and `live_rows`, the tile rows read before every pixel of the tile
-    stopped (the kernel's early exit)."""
-    n_tiles, k, _ = params.shape
-    n_samples = scalars.shape[0] - 2
+def _tile_grid(n_tiles: int, scalars: torch.Tensor, tile_size, tiles_x: int,
+               img_h: int, dev: torch.device):
+    """Tile origins (T, 1, 1), tile-local pixel centres (npix,) and the
+    per-pixel sample times ts (T, S, npix), as the kernels form them."""
     sw, sh = tile_wh(tile_size)
-    npix = sw * sh
-    dev, f32 = params.device, torch.float32
-
+    f32 = torch.float32
     tid = torch.arange(n_tiles, device=dev)
     tx = ((tid % tiles_x) * sw).to(f32)[:, None, None]          # (T, 1, 1)
     ty = ((tid // tiles_x) * sh).to(f32)[:, None, None]
-    pix = torch.arange(npix, device=dev)
+    pix = torch.arange(sw * sh, device=dev)
     px = (pix % sw).to(f32) + 0.5                                # (npix,)
     py = torch.div(pix, sw, rounding_mode="floor").to(f32) + 0.5
     # a same-device divisor: CUDA turns division by a host scalar into a
@@ -69,34 +63,73 @@ def rasterize_fwd_plain(params: torch.Tensor, counts: torch.Tensor,
     img_h_t = torch.full((), float(img_h), dtype=f32, device=dev)
     t_pix = scalars[0] * ((py + ty + scalars[1]) / img_h_t - 0.5)   # (T, 1, npix)
     ts = scalars[2:][None, :, None] + t_pix                      # (T, S, npix)
+    return tx, ty, px, py, ts
+
+
+def _row_alpha(g, tx, ty, px, py, ts, T, in_count):
+    """One slot of every tile: (dx0, dy0, alpha, lo, live), each (T, S|1,
+    npix), in the kernels' operation order. g (T, P, 1, 1) is the slot's row;
+    in_count (T, 1, 1) says whether the slot is under the tile's count."""
+    mx = g[:, 0] - tx
+    my = g[:, 1] - ty
+    ca, cb, cc = g[:, 2], g[:, 3], g[:, 4]
+    pvx, pvy, lo_hi = g[:, 10], g[:, 11], g[:, 12]
+    dx0 = px - mx                                                # (T, 1, npix)
+    dy0 = py - my
+    A = 0.5 * (ca * dx0 * dx0 + cc * dy0 * dy0) + cb * dx0 * dy0
+    B = -(ca * dx0 * pvx + cb * (dx0 * pvy + dy0 * pvx) + cc * dy0 * pvy)
+    C = 0.5 * (ca * pvx * pvx + cc * pvy * pvy) + cb * pvx * pvy
+    sigma = A + ts * (B + ts * C)                                # (T, S, npix)
+    lo = lo_hi - sigma
+    live = (T > T_EPS) & (lo >= LOG_THRESH) & (lo <= lo_hi) & in_count
+    alpha = torch.where(live, torch.clamp(torch.exp(lo), max=MAX_ALPHA), 0.0)
+    return dx0, dy0, alpha, lo, live
+
+
+def _new_work(dev, keys=("live_pairs", "live_row_pixels", "live_rows", "hit_pairs")):
+    return {k: torch.zeros((), dtype=torch.int64, device=dev) for k in keys}
+
+
+def _count_step(work, T, in_count, live):
+    """Add one slot's work to the counts of rasterize_fwd_plain(count_work);
+    live (T, S, npix) marks the pairs that composite."""
+    alive = (T > T_EPS) & in_count                               # (T, S, npix)
+    alive_pix = alive.any(dim=1)                                 # (T, npix)
+    work["live_pairs"] += alive.sum()
+    work["live_row_pixels"] += alive_pix.sum()
+    work["live_rows"] += alive_pix.any(dim=1).sum()
+    work["hit_pairs"] += live.sum()
+
+
+def rasterize_fwd_plain(params: torch.Tensor, counts: torch.Tensor,
+                        scalars: torch.Tensor, tile_size, tiles_x: int,
+                        img_h: int, count_work: bool = False):
+    """Plain PyTorch version of the kernel: a loop over the K slots, batched
+    over tiles, samples and pixels, with the kernel's arithmetic in the same
+    order (each product and sum rounded once).
+
+    count_work=True also returns the work these inputs need, as a dict:
+    `live_pairs`, the (Gaussian, pixel, sample) steps taken while the pixel's
+    T > T_EPS; `live_row_pixels`, the (Gaussian, pixel) steps taken while any
+    sample of the pixel has T > T_EPS (each needs the sigma coefficients);
+    `live_rows`, the tile rows read before every pixel of the tile stopped
+    (the kernel's early exit); and `hit_pairs`, the live pairs that
+    composite (alpha above its floor)."""
+    n_tiles, k, _ = params.shape
+    n_samples = scalars.shape[0] - 2
+    dev = params.device
+    tx, ty, px, py, ts = _tile_grid(n_tiles, scalars, tile_size, tiles_x, img_h, dev)
 
     n = torch.clamp(counts.long(), max=k)
-    T = torch.ones((n_tiles, n_samples, npix), dtype=f32, device=dev)
+    T = torch.ones((n_tiles, n_samples, px.shape[0]), dtype=torch.float32, device=dev)
     acc = [torch.zeros_like(T) for _ in range(4)]
     n_max = int(n.max()) if n_tiles else 0
-    work = {k: torch.zeros((), dtype=torch.int64, device=dev)
-            for k in ("live_pairs", "live_row_pixels", "live_rows")}
+    work = _new_work(dev)
     for j in range(n_max):
-        if count_work:
-            alive = (T > T_EPS) & (j < n)[:, None, None]              # (T, S, npix)
-            alive_pix = alive.any(dim=1)                             # (T, npix)
-            work["live_pairs"] += alive.sum()
-            work["live_row_pixels"] += alive_pix.sum()
-            work["live_rows"] += alive_pix.any(dim=1).sum()
         g = params[:, j, :, None, None]                          # (T, P, 1, 1)
-        mx = g[:, 0] - tx
-        my = g[:, 1] - ty
-        ca, cb, cc = g[:, 2], g[:, 3], g[:, 4]
-        pvx, pvy, lo_hi = g[:, 10], g[:, 11], g[:, 12]
-        dx0 = px - mx                                            # (T, 1, npix)
-        dy0 = py - my
-        A = 0.5 * (ca * dx0 * dx0 + cc * dy0 * dy0) + cb * dx0 * dy0
-        B = -(ca * dx0 * pvx + cb * (dx0 * pvy + dy0 * pvx) + cc * dy0 * pvy)
-        C = 0.5 * (ca * pvx * pvx + cc * pvy * pvy) + cb * pvx * pvy
-        sigma = A + ts * (B + ts * C)                            # (T, S, npix)
-        lo = lo_hi - sigma
-        live = (T > T_EPS) & (lo >= LOG_THRESH) & (lo <= lo_hi) & (j < n)[:, None, None]
-        alpha = torch.where(live, torch.clamp(torch.exp(lo), max=MAX_ALPHA), 0.0)
+        _, _, alpha, _, live = _row_alpha(g, tx, ty, px, py, ts, T, (j < n)[:, None, None])
+        if count_work:
+            _count_step(work, T, (j < n)[:, None, None], live)
         w = T * alpha
         for r, col in enumerate((5, 6, 7, 9)):
             acc[r] = acc[r] + w * g[:, col]
@@ -107,55 +140,114 @@ def rasterize_fwd_plain(params: torch.Tensor, counts: torch.Tensor,
     return out
 
 
-def _check_inputs(params, counts, scalars, tile_size, n_samples):
+def rasterize_bwd_plain(params: torch.Tensor, counts: torch.Tensor,
+                        scalars: torch.Tensor, fwd_out: torch.Tensor,
+                        g_out: torch.Tensor, tile_size, tiles_x: int,
+                        img_h: int, count_work: bool = False):
+    """Plain PyTorch version of the backward kernel: d_params (T, K, 16).
+
+    The math of `_bwd_one_tile`: one front-to-back pass that reruns the
+    forward recurrence (same operations, same order, so the live set is the
+    forward's), with the suffix S = A_total - prefix_inclusive and A_total =
+    rgb.dC + depth_acc dD + T_final dT taken from the forward output. Per
+    (slot, pixel, sample): v = c.dC + d dD, contrib = w v, and
+    d_sigma = alpha / (1 - alpha) * S - contrib where the pixel is live and
+    alpha below its clamp, else 0. Columns 0-11 are the gradients of mean
+    x/y, conic a/b/c, rgb, opacity, depth and pixel velocity x/y, summed over
+    samples and pixels; the opacity gradient is -sum d_sigma / max(op, 1e-12);
+    columns 12-15 (the log opacity and the pad) are zero, as is every slot
+    past the tile's count.
+
+    count_work=True also returns the forward's work counts (see
+    rasterize_fwd_plain; each of the `hit_pairs` takes the full backward
+    step) plus `sigma_pairs`, the compositing pairs below the alpha clamp,
+    which add the d_sigma moments."""
+    n_tiles, k, p = params.shape
+    dev = params.device
+    tx, ty, px, py, ts = _tile_grid(n_tiles, scalars, tile_size, tiles_x, img_h, dev)
+    dC = [g_out[:, :, r] for r in range(4)]                      # (T, S, npix) each
+    a_total = (fwd_out[:, :, 0] * g_out[:, :, 0] + fwd_out[:, :, 1] * g_out[:, :, 1]
+               + fwd_out[:, :, 2] * g_out[:, :, 2] + fwd_out[:, :, 3] * g_out[:, :, 3]
+               + fwd_out[:, :, 4] * g_out[:, :, 4])
+
+    n = torch.clamp(counts.long(), max=k)
+    T = torch.ones_like(a_total)
+    prefix = torch.zeros_like(a_total)
+    d_params = torch.zeros((n_tiles, k, p), dtype=torch.float32, device=dev)
+    n_max = int(n.max()) if n_tiles else 0
+    work = _new_work(dev, ("live_pairs", "live_row_pixels", "live_rows", "hit_pairs",
+                           "sigma_pairs"))
+    for j in range(n_max):
+        g = params[:, j, :, None, None]                          # (T, P, 1, 1)
+        dx0, dy0, alpha, lo, live = _row_alpha(g, tx, ty, px, py, ts, T,
+                                               (j < n)[:, None, None])
+        if count_work:
+            _count_step(work, T, (j < n)[:, None, None], live)
+            work["sigma_pairs"] += (live & (lo < LOG_MAX_ALPHA)).sum()
+        w = T * alpha
+        v = g[:, 5] * dC[0] + g[:, 6] * dC[1] + g[:, 7] * dC[2] + g[:, 9] * dC[3]
+        contrib = w * v
+        prefix = prefix + contrib
+        suffix = a_total - prefix
+        d_sigma = torch.where(live & (lo < LOG_MAX_ALPHA),
+                              alpha / (1.0 - alpha) * suffix - contrib, 0.0)
+        dx = dx0 - g[:, 10] * ts                                 # (T, S, npix)
+        dy = dy0 - g[:, 11] * ts
+        xs, ys = dx * d_sigma, dy * d_sigma
+        terms = [w * dC[0], w * dC[1], w * dC[2], w * dC[3], d_sigma, xs, ys,
+                 ts * xs, ts * ys, dx * xs, dy * ys, dx * ys]
+        (gr, gg, gb, gd, p0, su1, su2, sv1, sv2, xx, yy, xy) = (
+            t.sum(dim=(1, 2)) for t in terms)                    # (T,) each
+        row = params[:, j]
+        ca, cb, cc, op = row[:, 2], row[:, 3], row[:, 4], row[:, 8]
+        d_params[:, j, :12] = torch.stack([
+            -(ca * su1 + cb * su2), -(cc * su2 + cb * su1),
+            0.5 * xx, xy, 0.5 * yy, gr, gg, gb,
+            -p0 / torch.clamp(op, min=1e-12), gd,
+            -(ca * sv1 + cb * sv2), -(cc * sv2 + cb * sv1),
+        ], dim=1)
+        T = torch.where(live, T * (1.0 - alpha), T)
+    if count_work:
+        return d_params, {k: int(v) for k, v in work.items()}
+    return d_params
+
+
+def _check_inputs(params, counts, scalars, tile_size, n_samples, what="rasterize_fwd"):
     if not (params.is_cuda and counts.device == params.device
             and scalars.device == params.device):
-        raise ValueError(f"rasterize_fwd kernel needs CUDA tensors on one device, "
+        raise ValueError(f"{what} kernel needs CUDA tensors on one device, "
                          f"got {params.device}, {counts.device}, {scalars.device}")
     if params.dtype != torch.float32 or counts.dtype != torch.int32:
-        raise ValueError(f"rasterize_fwd wants float32 params and int32 counts, "
+        raise ValueError(f"{what} wants float32 params and int32 counts, "
                          f"got {params.dtype}, {counts.dtype}")
     if params.ndim != 3 or params.shape[2] != PARAM_STRIDE:
-        raise ValueError(f"rasterize_fwd wants params (T, K, {PARAM_STRIDE}), "
+        raise ValueError(f"{what} wants params (T, K, {PARAM_STRIDE}), "
                          f"got {tuple(params.shape)}")
     if counts.shape != (params.shape[0],):
         raise ValueError(f"counts {tuple(counts.shape)} vs {params.shape[0]} tiles")
     if not (params.is_contiguous() and counts.is_contiguous() and scalars.is_contiguous()):
-        raise ValueError("rasterize_fwd wants contiguous inputs")
+        raise ValueError(f"{what} wants contiguous inputs")
     if params.data_ptr() % 16:
-        raise ValueError("rasterize_fwd wants 16-byte aligned params")
+        raise ValueError(f"{what} wants 16-byte aligned params")
     if not 1 <= n_samples <= MAX_SAMPLES:
-        raise ValueError(f"rasterize_fwd kernel supports 1..{MAX_SAMPLES} samples, "
+        raise ValueError(f"{what} kernel supports 1..{MAX_SAMPLES} samples, "
                          f"got {n_samples}")
     sw, sh = tile_wh(tile_size)
     if sw * sh > MAX_TILE_PIXELS:
-        raise ValueError(f"rasterize_fwd kernel supports tiles of up to "
+        raise ValueError(f"{what} kernel supports tiles of up to "
                          f"{MAX_TILE_PIXELS} pixels, got {sw}x{sh}")
 
 
-def rasterize_fwd(params: torch.Tensor, counts: torch.Tensor, rs_time,
-                  tile_size, tiles_x: int, img_h: int, row_offset=0.0,
-                  eps: torch.Tensor | None = None, impl: str = "auto") -> torch.Tensor:
-    """Composite all tiles for all sub-frames: (T, S, NOUT, npix).
-
-    params (T, K, 16) per-tile blocks; counts (T,) int32 live rows per tile
-    (capped at K; rows past it are masked); rs_time, row_offset scalars;
-    eps (S,) sub-frame times (None: one sample at 0); img_h the full height
-    the rolling-shutter time is taken over.
-
-    impl: "auto" (kernel on CUDA tensors, plain version on CPU tensors),
-    "torch" (plain version on any device) or "cuda" (kernel; raises on CPU)."""
-    scalars = scalar_vec(rs_time, row_offset, eps, params.device)
-    if impl == "torch" or (impl == "auto" and not params.is_cuda):
-        return rasterize_fwd_plain(params, counts, scalars, tile_size, tiles_x, img_h)
-    if impl not in ("auto", "cuda"):
+def _use_kernel(impl: str, t: torch.Tensor) -> bool:
+    """The dispatch rule: kernel for "cuda", and for "auto" on a CUDA tensor."""
+    if impl not in ("auto", "torch", "cuda"):
         raise ValueError(f"unknown impl {impl!r}")
+    return impl == "cuda" or (impl == "auto" and t.is_cuda)
+
+
+def _launch_fwd(params, counts, scalars, tile_size, tiles_x, img_h):
     n_samples = scalars.shape[0] - 2
     _check_inputs(params, counts, scalars, tile_size, n_samples)
-    if torch.is_grad_enabled() and params.requires_grad:
-        raise NotImplementedError(
-            "rasterize_fwd's CUDA kernel has no backward yet: gradients come "
-            "with the training slice of the port (rasterize_bwd_packed)")
     n_tiles, k, _ = params.shape
     sw, sh = tile_wh(tile_size)
     out = torch.empty((n_tiles, n_samples, NOUT, sw * sh), dtype=torch.float32,
@@ -171,6 +263,91 @@ def rasterize_fwd(params: torch.Tensor, counts: torch.Tensor, rs_time,
                        out.data_ptr(), n_tiles, k, sw, sh, tiles_x, float(img_h),
                        n_samples, stream), "rasterize_fwd")
     return out
+
+
+def rasterize_bwd(params: torch.Tensor, counts: torch.Tensor, scalars: torch.Tensor,
+                  fwd_out: torch.Tensor, g_out: torch.Tensor, tile_size, tiles_x: int,
+                  img_h: int, impl: str = "auto") -> torch.Tensor:
+    """Gradient of `rasterize_fwd` with respect to its (T, K, 16) blocks,
+    given the forward output and its cotangent (T, S, NOUT, npix).
+
+    impl as for rasterize_fwd: the kernel `csrc/rasterize_bwd.cu` for "cuda"
+    and for "auto" on CUDA tensors, `rasterize_bwd_plain` otherwise."""
+    if not _use_kernel(impl, params):
+        return rasterize_bwd_plain(params, counts, scalars, fwd_out, g_out, tile_size,
+                                   tiles_x, img_h)
+    n_samples = scalars.shape[0] - 2
+    _check_inputs(params, counts, scalars, tile_size, n_samples, "rasterize_bwd")
+    n_tiles, k, _ = params.shape
+    sw, sh = tile_wh(tile_size)
+    want = (n_tiles, n_samples, NOUT, sw * sh)
+    for name, t in (("fwd_out", fwd_out), ("g_out", g_out)):
+        if (t.shape != want or t.dtype != torch.float32 or t.device != params.device
+                or not t.is_contiguous()):
+            raise ValueError(f"rasterize_bwd wants a contiguous float32 {name} {want} on "
+                             f"{params.device}, got {tuple(t.shape)} {t.dtype} {t.device}")
+    if (sw * sh) % WARP:
+        raise ValueError(f"rasterize_bwd kernel wants whole warps: {sw}x{sh} tiles "
+                         f"are not a multiple of {WARP} pixels")
+    d_params = torch.empty_like(params)
+    fn = build.load("rasterize_bwd").rasterize_bwd_f32
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(params.device):
+        stream = torch.cuda.current_stream(params.device).cuda_stream
+        rasterize_bwd.launches += 1
+        build.check(fn(params.data_ptr(), counts.data_ptr(), scalars.data_ptr(),
+                       fwd_out.data_ptr(), g_out.data_ptr(), d_params.data_ptr(),
+                       n_tiles, k, sw, sh, tiles_x, float(img_h), n_samples, stream),
+                    "rasterize_bwd")
+    return d_params
+
+
+rasterize_bwd.launches = 0
+
+
+class _Composite(torch.autograd.Function):
+    """The compositor with its analytic backward (the port of the JAX
+    package's `_composite_packed` custom VJP). The residuals are the blocks,
+    counts, scalars and the forward output; the scalars get no gradient, as
+    in JAX, where rs_time, row_offset and eps get zero cotangents."""
+
+    @staticmethod
+    def forward(ctx, params, counts, scalars, tile_size, tiles_x, img_h, use_kernel):
+        if use_kernel:
+            out = _launch_fwd(params, counts, scalars, tile_size, tiles_x, img_h)
+        else:
+            out = rasterize_fwd_plain(params, counts, scalars, tile_size, tiles_x, img_h)
+        ctx.save_for_backward(params, counts, scalars, out)
+        ctx.cfg = (tile_size, tiles_x, img_h, "cuda" if use_kernel else "torch")
+        return out
+
+    @staticmethod
+    def backward(ctx, g_out):
+        params, counts, scalars, out = ctx.saved_tensors
+        tile_size, tiles_x, img_h, impl = ctx.cfg
+        d_params = rasterize_bwd(params, counts, scalars, out, g_out.contiguous(),
+                                 tile_size, tiles_x, img_h, impl=impl)
+        return d_params, None, None, None, None, None, None
+
+
+def rasterize_fwd(params: torch.Tensor, counts: torch.Tensor, rs_time,
+                  tile_size, tiles_x: int, img_h: int, row_offset=0.0,
+                  eps: torch.Tensor | None = None, impl: str = "auto") -> torch.Tensor:
+    """Composite all tiles for all sub-frames: (T, S, NOUT, npix).
+
+    params (T, K, 16) per-tile blocks; counts (T,) int32 live rows per tile
+    (capped at K; rows past it are masked); rs_time, row_offset scalars;
+    eps (S,) sub-frame times (None: one sample at 0); img_h the full height
+    the rolling-shutter time is taken over.
+
+    impl: "auto" (kernel on CUDA tensors, plain version on CPU tensors),
+    "torch" (plain version on any device) or "cuda" (kernel; raises on CPU).
+    The backward (`rasterize_bwd`) takes the same route as the forward."""
+    scalars = scalar_vec(rs_time, row_offset, eps, params.device)
+    return _Composite.apply(params, counts, scalars, tile_size, tiles_x, img_h,
+                            _use_kernel(impl, params))
 
 
 rasterize_fwd.launches = 0

@@ -52,8 +52,8 @@ def seg_copy(sp: torch.Tensor, starts: torch.Tensor, k_pad: int,
     _check_inputs(sp, starts, k_pad)
     if torch.is_grad_enabled() and sp.requires_grad:
         raise NotImplementedError(
-            "seg_copy's CUDA kernel has no backward yet: gradients come with "
-            "the training slice of the port")
+            "seg_copy's CUDA kernel has no backward of its own: differentiate "
+            "through ops.cuda.gather_table, whose backward gathers over entry_slots")
     n_tiles, p = starts.shape[0], sp.shape[1]
     out = torch.empty((n_tiles, k_pad, p), dtype=sp.dtype, device=sp.device)
     lib = build.load("seg_copy")

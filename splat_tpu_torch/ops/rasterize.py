@@ -8,8 +8,12 @@ and the tiles are assembled into images. Two routes share this:
     the sorted stream and the forward compositing kernel (their plain
     versions on CPU tensors under "auto");
   * impl "torch": `gather_tile_params` from the dense (T, K) id table and the
-    compositor's plain version, on any device — an independent route to the
-    same result, used to check the kernel route on the card.
+    compositor's plain forward and backward, on any device — an independent
+    route to the same result and gradients, used to check the kernel route
+    on the card.
+
+Neither route's backward scatter-adds: both map slot gradients back to
+Gaussians by gathers, each built from its own route's data.
 """
 from __future__ import annotations
 
@@ -25,12 +29,45 @@ from .reference import RenderOutput
 IMPLS = ("auto", "torch", "cuda")
 
 
+class _GatherDense(torch.autograd.Function):
+    """table[indices] with a gather-form backward built from the id table
+    itself (independent of `entry_slots`): a stable sort groups each table
+    row's slots in slot order, and each row sums its slots' gradients from an
+    (N, M) table of slot numbers, M the most slots any row holds. Empty slots
+    (id -1) read the zero pad row and send it nothing."""
+
+    @staticmethod
+    def forward(ctx, table, indices):
+        pad_row = table.shape[0] - 1
+        idx = torch.where(indices >= 0, indices, pad_row).long()
+        ctx.save_for_backward(idx)
+        ctx.n_rows = table.shape[0]
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        n_rows, width = ctx.n_rows, g.shape[-1]
+        flat = idx.reshape(-1)
+        slots = torch.nonzero(flat < n_rows - 1).reshape(-1)    # filled slots, ascending
+        d_table = g.new_zeros((n_rows, width))
+        if slots.numel() == 0:
+            return d_table, None
+        order = torch.sort(flat[slots], stable=True).indices
+        rows, slots = flat[slots][order], slots[order]
+        first = torch.searchsorted(rows, torch.arange(n_rows, device=rows.device))
+        rank = torch.arange(rows.shape[0], device=rows.device) - first[rows]
+        slot_of = torch.full((n_rows, int(rank.max()) + 1), flat.shape[0],
+                             dtype=torch.long, device=rows.device)
+        slot_of[rows, rank] = slots
+        d_slots = torch.cat([g.reshape(-1, width), g.new_zeros((1, width))])
+        return d_slots[slot_of].sum(dim=1), None
+
+
 def gather_tile_params(lists: tiling.TileLists, table: torch.Tensor) -> torch.Tensor:
     """Per-tile parameter blocks (T, K, 16) from the dense id table; empty
     slots (id -1) take the table's zero pad row."""
-    pad_row = table.shape[0] - 1
-    idx = torch.where(lists.indices >= 0, lists.indices, pad_row)
-    return table[idx.long()]
+    return _GatherDense.apply(table, lists.indices)
 
 
 def assemble_image(tiles: torch.Tensor, img_w: int, img_h: int, tile_size) -> torch.Tensor:

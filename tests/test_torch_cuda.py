@@ -9,7 +9,17 @@ runs on its own:
 Tolerances: seg_copy moves bits (exact). The compositor and its plain
 version do the same float32 operations in the same order (the kernels are
 built with -fmad=false), so they differ only where expf does: atol 1e-4 on
-rgb and T, 1e-3 on depth_acc (depths ~4).
+rgb and T, 1e-3 on depth_acc (depths ~4). The backward kernel reruns the
+same per-pixel arithmetic and sums over pixels in another order than its
+plain version: |kernel - plain| <= 1e-5 * max|plain| per column within each
+64-slot batch (the deeper batches' gradients are ~1e-3 of the first's, so a
+column-wide bound would not see them), and <= 1e-3 of each (tile, slot)
+row's max over its columns (where a row's pixel sum cancels, the two
+summation orders differ by a few 1e-5 of the row's max). Gradients of the
+kernel route against the
+plain route (impl="torch"):
+each leaf within 1e-3 * max|leaf gradient|; and the kernel route's
+gradients are bitwise repeatable (no float atomics anywhere).
 """
 import dataclasses
 
@@ -17,7 +27,9 @@ import numpy as np
 import pytest
 import torch
 
+from splat_tpu_torch.engine import trainer
 from splat_tpu_torch.models import splatfacto as sf
+from splat_tpu_torch.models import strategy
 from splat_tpu_torch.models.convert import cameras_from_numpy, params_from_numpy
 from splat_tpu_torch.ops import cuda as kcuda
 from splat_tpu_torch.ops import rasterize, tiling
@@ -112,9 +124,80 @@ def test_render_camera_cuda_matches_torch_route(cuda_device):
 
 
 @pytest.mark.cuda
-def test_cuda_path_refuses_gradients(cuda_device):
+@pytest.mark.parametrize("tile_size,n_samples,row_off",
+                         [(16, 5, 0.0), (16, 1, 0.0), ((16, 8), 5, 8.0), (8, 16, 0.0)])
+def test_bwd_kernel_matches_plain_on_card(cuda_device, tile_size, n_samples, row_off):
+    lists, sp, motion = _inputs(cuda_device, tile_size)
+    blocks = seg_copy(sp, lists.starts, K, impl="cuda")
+    eps = torch.linspace(-0.03, 0.03, n_samples, device=cuda_device)
+    tiles_x = tiling.num_tiles(IMG_W, IMG_H, tile_size)[0]
+    full_h = IMG_H + 2 * int(row_off)
+    scalars = rk.scalar_vec(motion.rs_time, row_off, eps, cuda_device)
+    fwd = rk.rasterize_fwd(blocks, lists.counts, motion.rs_time, tile_size, tiles_x, full_h,
+                           row_offset=row_off, eps=eps, impl="cuda")
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    g_out = torch.randn(fwd.shape, generator=g, device=cuda_device)
+    args = (blocks, lists.counts, scalars, fwd, g_out, tile_size, tiles_x, full_h)
+    got = rk.rasterize_bwd(*args, impl="cuda")
+    want = rk.rasterize_bwd(*args, impl="torch")
+    torch.cuda.synchronize()
+    assert torch.equal(got, rk.rasterize_bwd(*args, impl="cuda")), "bitwise repeatable"
+    assert not got[:, :, rk.NPARAM - 1:].any()
+    assert (want[:, :, :rk.NPARAM - 1].abs().amax(dim=(0, 1)) > 0).all()
+    err = (got - want)[:, :, :rk.NPARAM - 1].abs()
+    ref = want[:, :, :rk.NPARAM - 1].abs()
+    for j in range(0, K, 64):      # per column within each 64-slot batch
+        e, m = err[:, j:j + 64].amax(dim=(0, 1)), ref[:, j:j + 64].amax(dim=(0, 1))
+        assert (e <= 1e-5 * m).all(), (j, e, m)
+    e, m = err.amax(dim=2), ref.amax(dim=2)        # per (tile, slot) row
+    assert (e <= 1e-3 * m).all(), (e / m).nan_to_num().max()
+
+
+def _train_grads(params, cams, cfg, gt):
+    """Every trainable leaf's gradient and the probe's for one loss."""
+    leaves = trainer.param_groups(params)
+    flat = [p for group in leaves.values() for p in group]
+    for p in flat:
+        p.grad = None
+        p.requires_grad_(True)
+    probe = torch.zeros_like(params.gaussians.means[:, :2], requires_grad=True)
+    out = sf.render_camera(params, cams, cfg, 3, sf.background_color(params, cfg),
+                           means2d_probe=probe)
+    loss, _ = sf.compute_losses(sf.gamma_encode(out.rgb, cfg), gt, params, cfg)
+    loss.backward()
+    return loss.detach(), [p.grad.clone() for p in flat] + [probe.grad]
+
+
+@pytest.mark.cuda
+def test_cuda_path_gradients_match_torch_route(cuda_device):
+    """The kernel route's loss and gradients (rasterize_bwd, the entry_slots
+    gather) against the plain route's (dense id table, plain backward), and
+    two evaluations of the kernel route bitwise equal."""
     params, cams = _model(cuda_device)
-    params.gaussians.means.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        sf.render_camera(params, cams, sf.SplatfactoConfig(max_per_tile=K), 3,
-                         torch.zeros(3, device=cuda_device))
+    cfg = sf.SplatfactoConfig(max_per_tile=K)
+    gt = torch.rand((IMG_H, IMG_W, 3), generator=torch.Generator(device=cuda_device).manual_seed(1),
+                    device=cuda_device)
+    before = rk.rasterize_bwd.launches
+    loss, grads = _train_grads(params, cams, cfg, gt)
+    assert rk.rasterize_bwd.launches > before
+    loss2, grads2 = _train_grads(params, cams, cfg, gt)
+    assert torch.equal(loss, loss2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
+    loss_t, grads_t = _train_grads(params, cams, dataclasses.replace(cfg, impl="torch"), gt)
+    torch.testing.assert_close(loss, loss_t, rtol=1e-5, atol=0)
+    for a, b in zip(grads, grads_t):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-3 * b.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_train_step_on_card(cuda_device):
+    params, cams = _model(cuda_device)
+    cfg = sf.SplatfactoConfig(max_per_tile=K)
+    opt = trainer.Optimizer(params, trainer.TrainerConfig())
+    state = strategy.init_strategy_state(params.gaussians.means.shape[0], device=cuda_device)
+    gt = torch.full((IMG_H, IMG_W, 3), 0.5, device=cuda_device)
+    losses = []
+    for step in range(3):
+        loss, aux, state = trainer.train_step(params, opt, state, cfg, cams, gt, 3000 + step)
+        losses.append(loss.item())
+    assert all(np.isfinite(losses)) and int(aux["n_visible"]) > 0
+    assert int(state.grad_count.max()) == 3

@@ -18,7 +18,10 @@ from splat_tpu.ops import projection as jproj
 from splat_tpu.ops import tiling as jtiling
 from splat_tpu.ops.pallas import pack_param_table as j_pack
 from splat_tpu.ops.pallas.rasterize_kernels import rasterize_fwd_packed
-from splat_tpu.ops.pallas.rasterize_kernels_gmajor import rasterize_fwd_gpacked_rowin
+from splat_tpu.ops.pallas.rasterize_kernels_gmajor import (
+    rasterize_fwd_gpacked,
+    rasterize_fwd_gpacked_rowin,
+)
 from splat_tpu.ops.pallas.seg_copy import seg_copy as j_seg_copy
 from splat_tpu_torch.ops import cuda as tcuda
 from splat_tpu_torch.ops import projection as tproj
@@ -79,15 +82,20 @@ CASES = [
 
 
 @pytest.mark.parametrize("tile_size,n_samples,rs,row_off", CASES)
-@pytest.mark.parametrize("jax_kernel", ["gpacked_rowin", "packed"])
+@pytest.mark.parametrize("jax_kernel", ["gpacked_rowin", "packed", "gpacked"])
 def test_rasterize_fwd_plain_matches_pallas(tile_size, n_samples, rs, row_off, jax_kernel):
+    """The port's one forward against the three TPU layouts of the same
+    function: (T, 13, K) rows in (#1, #3) and (T, K, 13) in (#4)."""
     blocks, counts = _blocks(tile_size)
     tiles_x = jtiling.num_tiles(IMG_W, IMG_H, tile_size)[0]
     full_h = IMG_H + 2 * int(row_off)
     eps = np.linspace(-0.5, 0.5, n_samples).astype(np.float32) * 0.06
-    j_fn = rasterize_fwd_gpacked_rowin if jax_kernel == "gpacked_rowin" else rasterize_fwd_packed
+    j_fn = {"gpacked_rowin": rasterize_fwd_gpacked_rowin, "packed": rasterize_fwd_packed,
+            "gpacked": rasterize_fwd_gpacked}[jax_kernel]
+    j_blocks = jnp.asarray(blocks)
     want = np.asarray(j_fn(
-        jnp.asarray(blocks).transpose(0, 2, 1), jnp.asarray(counts), jnp.float32(rs),
+        j_blocks if jax_kernel == "gpacked" else j_blocks.transpose(0, 2, 1),
+        jnp.asarray(counts), jnp.float32(rs),
         tile_size, tiles_x, full_h, jnp.float32(row_off), jnp.asarray(eps),
     ))[:, :, :trk.NOUT]
     padded = torch.nn.functional.pad(torch.tensor(blocks), (0, trk.PARAM_STRIDE - trk.NPARAM))
@@ -116,7 +124,7 @@ def test_rasterize_fwd_plain_counts_work():
     _, work = trk.rasterize_fwd_plain(faint, counts_t, scalars, 8, tiles_x, IMG_H,
                                       count_work=True)
     assert work == dict(live_pairs=rows * npix * n_s, live_row_pixels=rows * npix,
-                        live_rows=rows)
+                        live_rows=rows, hit_pairs=0)
 
     out, work = trk.rasterize_fwd_plain(padded, counts_t, scalars, 8, tiles_x, IMG_H,
                                         count_work=True)
@@ -127,6 +135,7 @@ def test_rasterize_fwd_plain_counts_work():
         work["live_row_pixels"] < work["live_rows"] * npix
     assert work["live_row_pixels"] * n_s >= work["live_pairs"]
     assert 0 < work["live_rows"] <= rows and work["live_pairs"] < rows * npix * n_s
+    assert 0 < work["hit_pairs"] < work["live_pairs"]
 
 
 def test_pack_param_table_matches_jax():

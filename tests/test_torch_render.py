@@ -153,14 +153,21 @@ def test_render_camera_torch_route_matches_kernel_route():
 
 
 def test_plain_route_is_differentiable_on_cpu():
+    """Every leaf gets a finite gradient, the opacity included: the plain
+    compositor's alpha reads only the detached log-opacity column, so the
+    opacity gradient has to come from the analytic backward's column 8."""
     _, tc = _configs()
     _, tree = _model(_configs()[0])
     tparams = params_from_numpy(tree, device="cpu")
-    means = tparams.gaussians.means.requires_grad_(True)
+    g = tparams.gaussians
+    leaves = (g.means, g.opacities_logit, g.scales_log, g.features_dc)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
     _, tcam = _cameras(48, 32)
     out = tsf.render_camera(tparams, tcam[1], tc, 3, torch.zeros(3))
     out.rgb.mean().backward()
-    assert torch.isfinite(means.grad).all() and means.grad.abs().sum() > 0
+    for leaf in leaves:
+        assert torch.isfinite(leaf.grad).all() and leaf.grad.abs().sum() > 0
 
 
 def test_blur_helpers_match_jax():
