@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, each of which raises (and the script exits nonzero) on failure:
-  1. build the three CUDA kernels with nvcc (in parallel) and print the
+  1. build the seven CUDA kernels with nvcc (in parallel) and print the
      environment: card, power limit, torch / CUDA versions, TF32 flags;
   2. hold each kernel against its plain PyTorch version on the card at the
      main path's shapes (the binning of the first camera): seg_copy bitwise,
@@ -12,7 +12,13 @@ Phases, each of which raises (and the script exits nonzero) on failure:
      (expf and summation order), the backward compositor on a seeded
      cotangent (pixel sums in another order) within 1e-5 of max|plain| per
      column and per column in each 64-slot batch, and 1e-3 of each row's
-     max; each also at S = 1 and with 16x8 tiles;
+     max; each also at S = 1 and with 16x8 tiles; row_gather bitwise at both
+     of the training step's shapes (the sorted ids over the parameter table,
+     the entry slots over the slot gradients) and at its probe's; seg_dma in
+     both variants (tps 1, 4, 8; align 8, 32, 128) bitwise on the same
+     stream; row_scatter within 1e-5 of max|column| of a float64 sum and
+     bitwise repeatable, and chunk_cumsum in both variants, at their probes'
+     shapes (`scripts_dev/probe_*_torch.py`);
   3. the render path: 4 cameras at 1024x1024 from a 100k-Gaussian model (the
      bench scene, random SH from a seed) through `render_camera` with the
      default config (5 fused blur samples, rolling shutter, SH degree 3,
@@ -24,14 +30,29 @@ Phases, each of which raises (and the script exits nonzero) on failure:
      means2d probe's) against the impl="torch" route (plain forward and
      backward over the dense id table: loss rtol 1e-5, each leaf within
      1e-3 * max|leaf gradient|) and bitwise equal over two evaluations; then
-     20 `train_step`s from step 3000 cycling the 4 cameras, counting
+     10 `train_step`s from step 3000 cycling the 4 cameras, counting
      launches: everything finite, the loss falling, the backward kernel
-     launched on every step; then the step time and peak memory;
-  5. time each kernel, its plain version and a library yardstick on phase
-     2's inputs, beside the least time the card could take;
-  6. print the `kernels` JSON line (launches from the 20 training steps),
-     the card's name and power limit as nvidia-smi gives them, and the
-     result line.
+     launched on every step and row_gather twice; then the step time and
+     peak memory;
+  5. the training loop at full width: `Trainer.run` for 200 steps on the
+     same 100k Gaussians with 4 train and 2 eval cameras rendered from the
+     perturbed model, on a schedule short enough to reach every branch
+     (refine every 40 steps, opacity reset every 2 refines, the eval-camera
+     step every 5): it must cull and densify, reset the opacities and skip
+     the paused refine, grow the capacity with Adam's moments carried, grow
+     max_per_tile on the second over-tolerance probe and carry on at the new
+     K (where the three compositing kernels are held against their plain
+     versions again), keep every record finite, and end with a higher eval
+     PSNR than it started with; prints the step time and peak memory;
+  6. the three probe entry points (`scripts_dev/probe_kernel_gather_torch.py`,
+     `probe_seg_dma_torch.py`, `probe_cumsum_torch.py`): their timing loops
+     are the path that launches row_scatter, seg_dma and chunk_cumsum;
+  7. time each kernel, its plain version and a library yardstick on phase
+     2's inputs (the probes' inputs for the probe kernels), beside the least
+     time the card could take;
+  8. print the `kernels` JSON line (launches from the loop's 200 steps, and
+     from the probes' timing loops for the three probe kernels), the card's
+     name and power limit as nvidia-smi gives them, and the result line.
 
 Needs a CUDA device; exits nonzero without one.
 """
@@ -40,9 +61,9 @@ from __future__ import annotations
 import dataclasses
 import json
 import statistics
-import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -50,6 +71,7 @@ import torch
 N_GAUSS = 100_000
 RES = 1024
 N_CAMERAS = 4
+N_EVAL_CAMERAS = 2
 SEED = 0
 TIMED_RUNS = 10
 KERNEL_RUNS = 20
@@ -77,8 +99,19 @@ BWD_FLOPS_PER_ROW = FLOPS_PER_ROW + 17
 # row, to the row's max over its 12 columns (where a row's pixel sum cancels,
 # the two summation orders differ by a few 1e-5 of the row's max)
 BWD_TOL = {"column": 1e-5, "batch": 1e-5, "row": 1e-3}
-TRAIN_STEPS = 20
+TRAIN_STEPS = 10
 TRAIN_START = 3000       # SH degree 3 from the start
+# the loop: a schedule short enough to reach every branch in LOOP_STEPS steps.
+# Refines fall on steps 40, 80, 160 and 200: the one at 80 resets the
+# opacities, the one at 120 is paused (4 train views + 40 steps have not
+# passed), the one at 160 may not reset (no recovery window before the end).
+LOOP_STEPS = 200
+LOOP_SCHEDULE = dict(warmup_length=40, refine_every=40, reset_alpha_every=2,
+                     sh_degree_interval=20, optimize_eval_cameras=True)
+# alive share 0.977 at the start: the first densify fills the dead slots and
+# the capacity doubles
+LOOP_CAPACITY = 102_400
+LOOP_SEED_POINTS = 20_000    # the seed cloud init_model sizes its scales from
 
 
 def check(ok: bool, what: str) -> None:
@@ -119,23 +152,23 @@ def model_tree(seed=SEED):
     }
 
 
-def camera_fields(seed=SEED):
-    """Poses near identity (the scene sits at z ~ 4 in front), seeded."""
+def camera_fields(seed=SEED, n=N_CAMERAS):
+    """n poses near identity (the scene sits at z ~ 4 in front), seeded."""
     rng = np.random.default_rng(seed + 2)
-    rot = rng.normal(size=(N_CAMERAS, 3)) * 0.02
+    rot = rng.normal(size=(n, 3)) * 0.02
     R = []
     for w in rot:
         th = np.linalg.norm(w)
         K = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]]) / th
         R.append(np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K)
     f32 = np.float32
-    ones = np.ones(N_CAMERAS, f32)
+    ones = np.ones(n, f32)
     return dict(
-        R_c2w=np.stack(R).astype(f32), p_c2w=(rng.normal(size=(N_CAMERAS, 3)) * 0.05).astype(f32),
+        R_c2w=np.stack(R).astype(f32), p_c2w=(rng.normal(size=(n, 3)) * 0.05).astype(f32),
         fx=ones * 0.9 * RES, fy=ones * 0.9 * RES, cx=ones * RES / 2, cy=ones * RES / 2,
         width=RES, height=RES,
-        lin_vel=np.tile(f32([0.4, -0.2, 0.1]), (N_CAMERAS, 1)),
-        ang_vel=np.tile(f32([0.05, 0.1, -0.02]), (N_CAMERAS, 1)),
+        lin_vel=np.tile(f32([0.4, -0.2, 0.1]), (n, 1)),
+        ang_vel=np.tile(f32([0.05, 0.1, -0.02]), (n, 1)),
         exposure_time=ones * 0.06, rolling_shutter_time=ones * 0.03,
     )
 
@@ -172,29 +205,22 @@ def bwd_errors(got: torch.Tensor, want: torch.Tensor, batch: int = 64) -> dict:
             "row": share(err.amax(dim=2), ref.amax(dim=2))}
 
 
-def nvidia_smi(query: str) -> str:
-    res = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True)
-    return res.stdout.strip().splitlines()[0]
+def window_ms(times: list[float], window: int) -> list[float]:
+    """Per-step ms over consecutive windows of `window` steps: the trainer
+    waits for the card only at a window's last step, so single steps read the
+    enqueue time and only a window's sum is the time the work took."""
+    return [sum(times[i:i + window]) * 1e3 / window
+            for i in range(0, len(times) - window + 1, window)]
 
 
-def time_cuda(fn, runs: int, reps: int = 1) -> float:
-    """Median over `runs` of the ms per call of `reps` calls enqueued back to
-    back between two CUDA events, after one warm-up. With reps > 1 the later
-    calls queue up while the card runs the earlier ones (when the host
-    enqueues faster than the card runs), so a short kernel's time carries the
-    host's launch latency once in `reps` calls rather than in every one."""
-    fn()
-    times = []
-    for _ in range(runs):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / reps)
-    return statistics.median(times)
+def load_probe(name: str):
+    """Import scripts_dev/<name>.py (a script, not a package module)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, Path(__file__).resolve().parent / "scripts_dev" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def main() -> int:
@@ -205,13 +231,28 @@ def main() -> int:
     from splat_tpu_torch.engine import trainer
     from splat_tpu_torch.models import splatfacto as sf
     from splat_tpu_torch.models import strategy
-    from splat_tpu_torch.models.convert import cameras_from_numpy, params_from_numpy
+    from splat_tpu_torch.models.convert import (cameras_from_numpy, params_from_numpy,
+                                                scene_from_numpy)
     from splat_tpu_torch.cameras import optimizers as cam_opt
     from splat_tpu_torch.ops import cuda as kcuda
     from splat_tpu_torch.ops import rasterize, tiling
     from splat_tpu_torch.ops.cuda import build
     from splat_tpu_torch.ops.cuda import rasterize_kernels as rk
+    from splat_tpu_torch.ops.cuda.chunk_cumsum import chunk_cumsum
+    from splat_tpu_torch.ops.cuda.row_gather import row_gather, row_gather_plain
+    from splat_tpu_torch.ops.cuda.row_scatter import row_scatter
     from splat_tpu_torch.ops.cuda.seg_copy import seg_copy, seg_copy_plain
+    from splat_tpu_torch.ops.cuda.seg_dma import seg_dma
+    from splat_tpu_torch.utils.profiling import nvidia_smi, time_cuda
+
+    probes = {name: load_probe(name) for name in
+              ("probe_kernel_gather_torch", "probe_seg_dma_torch", "probe_cumsum_torch")}
+    path_kernels = (seg_copy, rk.rasterize_fwd, rk.rasterize_bwd, row_gather)
+    probe_kernels = (row_scatter, seg_dma, chunk_cumsum)
+
+    def reset_counts():
+        for kern in path_kernels + probe_kernels:
+            kern.launches = 0
 
     dev = torch.device("cuda")
     # phase 1: build and environment
@@ -219,7 +260,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmul off")
     t0 = time.perf_counter()
-    report = build.build(["seg_copy", "rasterize_fwd", "rasterize_bwd"])
+    report = build.build(["seg_copy", "rasterize_fwd", "rasterize_bwd", "row_gather",
+                          "row_scatter", "seg_dma", "chunk_cumsum"])
     print(f"build: {time.perf_counter() - t0:.2f} s wall for {sorted(report) or 'cached'}")
     for name, r in report.items():
         info = [ln.strip() for ln in r["log"].splitlines() if "registers" in ln or "spill" in ln]
@@ -248,19 +290,26 @@ def main() -> int:
     opac = torch.sigmoid(params.gaussians.opacities_logit) * params.gaussians.alive
 
     # phase 2: each kernel against its plain version at the main path's shapes
-    def kernel_inputs(tile_size):
-        motion = sf.camera_motion(params, cams[0], cfg)
+    def kernel_inputs(tile_size, model=params, k_pad=K):
+        """Camera 0's binning of `model` and its sorted parameter stream
+        (through the row_gather kernel)."""
+        g = model.gaussians
+        op = torch.sigmoid(g.opacities_logit) * g.alive
+        motion = sf.camera_motion(model, cams[0], cfg)
         t_a = motion.eps.mean()
-        proj, colors = sf.subframe_inputs(params, motion, cfg, cfg.sh_degree, t_a)
+        proj, colors = sf.subframe_inputs(model, motion, cfg, cfg.sh_degree, t_a)
         eps = motion.eps - t_a
-        lists = rasterize.bin_tiles(proj, opac, RES, RES, eps, motion.rs_time, tile_size,
-                                    K, cfg.max_tiles_per_gaussian)
-        sp = kcuda.sorted_stream(kcuda.pack_param_table(proj, colors, opac), lists.sorted_ids, K)
-        return lists, sp, eps, motion.rs_time
+        lists = rasterize.bin_tiles(proj, op, RES, RES, eps, motion.rs_time, tile_size,
+                                    k_pad, cfg.max_tiles_per_gaussian)
+        table = kcuda.pack_param_table(proj, colors, op)
+        sp = kcuda.sorted_stream(table, lists.sorted_ids, k_pad)
+        check(torch.equal(sp, row_gather_plain(table, lists.sorted_ids, k_pad)),
+              f"row_gather bitwise over the parameter table, K = {k_pad}")
+        return lists, sp, eps, motion.rs_time, table
 
     errs = {}
     with torch.no_grad():
-        lists, sp, eps, rs = kernel_inputs(cfg.tile_size)
+        lists, sp, eps, rs, table = kernel_inputs(cfg.tile_size)
         blocks = seg_copy(sp, lists.starts, K, impl="cuda")
         check(torch.equal(blocks, seg_copy_plain(sp, lists.starts, K)), "seg_copy bitwise")
         errs["seg_copy"] = 0.0
@@ -279,7 +328,7 @@ def main() -> int:
                   f"depth {err_d:.3g}")
             check(err_c <= 1e-4 and err_d <= 1e-3, f"rasterize_fwd {label} within tolerance")
             errs["rasterize_fwd"] = max(errs.get("rasterize_fwd", 0.0), err_c, err_d)
-        lists_r, sp_r, eps_r, rs_r = kernel_inputs((16, 8))
+        lists_r, sp_r, eps_r, rs_r, _ = kernel_inputs((16, 8))
         blocks_r = seg_copy(sp_r, lists_r.starts, K, impl="cuda")
         check(torch.equal(blocks_r, seg_copy_plain(sp_r, lists_r.starts, K)),
               "seg_copy bitwise, 16x8 tiles")
@@ -322,10 +371,38 @@ def main() -> int:
         check_bwd("tile 16x8, S=5", blocks_r, lists_r, eps_r, (16, 8), r_args[4], RES)
         del lists_r, sp_r, blocks_r, got, want
 
+        # row_gather at the backward's shape: the slot gradients (T * K rows
+        # and the zero row of dropped entries) at the binning's entry slots
+        d_slots = torch.randn((lists.counts.shape[0] * K + 1, rk.PARAM_STRIDE), device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(SEED + 3))
+        entry_slots = lists.entry_slots.contiguous()
+        check(torch.equal(row_gather(d_slots, entry_slots, impl="cuda"),
+                          row_gather_plain(d_slots, entry_slots)),
+              "row_gather bitwise over the slot gradients")
+        errs["row_gather"] = 0.0
+        # seg_dma in both variants on the main path's stream
+        dma_variants = probes["probe_seg_dma_torch"].VARIANTS
+        for tps, align in dma_variants:
+            check(torch.equal(seg_dma(sp, lists.starts, K, tps=tps, align=align, impl="cuda"),
+                              blocks), f"seg_dma tps={tps} align={align} bitwise")
+        errs["seg_dma"] = 0.0
+        # the probe kernels at their probes' shapes
+        probe_inputs = {name: mod.make_inputs(dev) for name, mod in probes.items()}
+        gather_errs = probes["probe_kernel_gather_torch"].check(
+            probe_inputs["probe_kernel_gather_torch"])
+        errs["row_scatter"] = gather_errs["row_scatter"]
+        probes["probe_seg_dma_torch"].check(probe_inputs["probe_seg_dma_torch"])
+        cumsum_errs = probes["probe_cumsum_torch"].check(probe_inputs["probe_cumsum_torch"])
+        errs["chunk_cumsum"] = max(cumsum_errs.values())
+        print(f"row_gather bitwise (parameter table {tuple(sp.shape)}, slot gradients "
+              f"{entry_slots.numel()} rows, probe shape); seg_dma bitwise in "
+              f"{len(dma_variants)} variants (main path and probe streams); row_scatter "
+              f"{gather_errs['row_scatter_share']:.3g} of max|column| from the float64 sum, "
+              f"two launches bitwise equal; chunk_cumsum max|err| "
+              + ", ".join(f"{k} {v:.3g}" for k, v in cumsum_errs.items()))
+
         # phase 3: the render path at full width, counting launches
-        seg_copy.launches = 0
-        rk.rasterize_fwd.launches = 0
-        rk.rasterize_bwd.launches = 0
+        reset_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         images = [sf.render_camera(params, cams[i], cfg, cfg.sh_degree, bg)
@@ -333,7 +410,8 @@ def main() -> int:
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t0) * 1e3 / N_CAMERAS
         render_launches = {"seg_copy": seg_copy.launches,
-                           "rasterize_fwd": rk.rasterize_fwd.launches}
+                           "rasterize_fwd": rk.rasterize_fwd.launches,
+                           "row_gather": row_gather.launches}
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         print(f"render path: {N_CAMERAS} cameras, launches {render_launches}, "
               f"first pass {first_ms:.1f} ms/camera, peak memory {peak_gib:.2f} GiB")
@@ -371,10 +449,16 @@ def main() -> int:
 
     # phase 4: the main path, training at full width
     target = params_from_numpy(target_tree(), device=dev)
+    eval_fields = camera_fields(SEED + 11, N_EVAL_CAMERAS)
+    eval_cams = cameras_from_numpy(eval_fields, device=dev)
+
+    def target_image(cam):
+        out = sf.render_camera(target, cam, cfg, cfg.sh_degree, sf.background_color(target, cfg))
+        return sf.gamma_encode(out.rgb, cfg)
+
     with torch.no_grad():
-        gts = [sf.gamma_encode(sf.render_camera(target, cams[i], cfg, cfg.sh_degree,
-                                                sf.background_color(target, cfg)).rgb, cfg)
-               for i in range(N_CAMERAS)]
+        gts = [target_image(cams[i]) for i in range(N_CAMERAS)]
+        eval_gts = [target_image(eval_cams[i]) for i in range(N_EVAL_CAMERAS)]
     del target
     groups = trainer.param_groups(params)
     leaves = [(f"{label}[{i}]", p) for label, group in groups.items() for i, p in enumerate(group)]
@@ -410,8 +494,7 @@ def main() -> int:
 
     opt = trainer.Optimizer(params, trainer.TrainerConfig())
     state = strategy.init_strategy_state(N_GAUSS, seed=SEED, device=dev)
-    for kern in (seg_copy, rk.rasterize_fwd, rk.rasterize_bwd):
-        kern.launches = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     losses, n_visible = [], []
     for i in range(TRAIN_STEPS):
@@ -420,15 +503,18 @@ def main() -> int:
         losses.append(loss)
         n_visible.append(aux["n_visible"])
     torch.cuda.synchronize()
-    launches = {"seg_copy": seg_copy.launches, "rasterize_fwd": rk.rasterize_fwd.launches,
-                "rasterize_bwd": rk.rasterize_bwd.launches}
+    step_launches = {"seg_copy": seg_copy.launches, "rasterize_fwd": rk.rasterize_fwd.launches,
+                     "rasterize_bwd": rk.rasterize_bwd.launches,
+                     "row_gather": row_gather.launches}
     losses = torch.stack(losses).tolist()
-    print(f"train: {TRAIN_STEPS} steps from step {TRAIN_START}, launches {launches}; losses "
+    print(f"train: {TRAIN_STEPS} steps from step {TRAIN_START}, launches {step_launches}; losses "
           + " ".join(f"{v:.5f}" for v in losses)
           + f"; n_visible {[int(v) for v in n_visible[:N_CAMERAS]]}; "
           f"max grad_count {int(state.grad_count.max())}")
-    for k, n in launches.items():
+    for k, n in step_launches.items():
         check(n >= TRAIN_STEPS, f"{k} launched on every training step")
+    check(step_launches["row_gather"] == 2 * TRAIN_STEPS,
+          "row_gather launched twice per training step (the stream, the slot gradients)")
     check(all(np.isfinite(losses)), "training losses finite")
     check(all(bool(torch.isfinite(p).all()) for p in opt.params), "parameters finite")
     check(all(bool(torch.isfinite(v).all()) for st in opt.adam.state.values()
@@ -453,8 +539,156 @@ def main() -> int:
     for _, p in leaves:
         p.requires_grad_(False)
 
+    # phase 5: the training loop at full width, through Trainer.run
+    tree = model_tree()
+    scene, train_imgs, eval_imgs = scene_from_numpy(dict(
+        train_cameras=camera_fields(), eval_cameras=eval_fields,
+        train_images=torch.stack(gts).cpu().numpy(),
+        eval_images=torch.stack(eval_gts).cpu().numpy(),
+        points_xyz=tree["gaussians"]["means"][:LOOP_SEED_POINTS], points_rgb=None), device=dev)
+    loop_cfg = dataclasses.replace(cfg, initial_capacity=LOOP_CAPACITY, **LOOP_SCHEDULE)
+    loop_tc = trainer.TrainerConfig(max_steps=LOOP_STEPS, seed=SEED, log_every=10)
+    t0 = time.perf_counter()
+    loop = trainer.Trainer(scene, loop_cfg, loop_tc, train_images=train_imgs,
+                           eval_images=eval_imgs)
+    with torch.no_grad():     # the initial model: the bench scene in the first N_GAUSS slots
+        for field, value in tree["gaussians"].items():
+            getattr(loop.params.gaussians, field)[:N_GAUSS].copy_(
+                torch.as_tensor(value, device=dev))
+    check(loop.params.gaussians.alive.shape[0] == LOOP_CAPACITY
+          and int(loop.params.gaussians.alive.sum()) == N_GAUSS, "the loop's initial model")
+    fullest = []
+    probe_counts = loop._probe_counts
+
+    def recording_probe(cam):
+        counts = probe_counts(cam)
+        fullest.append(int(counts.max()))
+        return counts
+
+    loop._probe_counts = recording_probe
+    before = loop.evaluate()
+    print(f"loop: trainer ready in {time.perf_counter() - t0:.1f} s; capacity {LOOP_CAPACITY}, "
+          f"{N_CAMERAS} train and {N_EVAL_CAMERAS} eval cameras, blur anchors "
+          f"{loop.model_config.blur_anchors}; eval before: psnr {before['psnr']:.3f} dB, "
+          f"ssim {before['ssim']:.4f}")
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    history = loop.run(LOOP_STEPS)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    launches = {"seg_copy": seg_copy.launches, "rasterize_fwd": rk.rasterize_fwd.launches,
+                "rasterize_bwd": rk.rasterize_bwd.launches, "row_gather": row_gather.launches}
+    loop_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    after = loop.evaluate()
+    events = loop.refine_events
+    for e in events:
+        print(f"  refine at step {e['step']}: culled {e['n_culled']}, split {e['n_split']}, "
+              f"cloned {e['n_cloned']}, alive {e['n_alive']}; capacity {e['capacity']}"
+              f"{' (grew)' if e['grew'] else ''}, max_per_tile {e['max_per_tile']}"
+              f"{' (adapted)' if e['adapted'] else ''}{', opacity reset' if e['reset'] else ''}")
+    for rec in history:
+        print(f"  step {rec['step']}: loss {rec['loss']:.5f}, n_alive {rec['n_alive']}, "
+              f"tile_overflow_frac {rec.get('tile_overflow_frac')}, "
+              f"step_ms_p50 {rec['step_ms_p50']:.2f}")
+    n_eval_steps = len(range(0, LOOP_STEPS, loop_tc.eval_opt_every))
+    print(f"loop: {LOOP_STEPS} steps in {loop_s:.2f} s, launches {launches} "
+          f"({n_eval_steps} eval-camera steps); fullest tile at the probes {fullest}; "
+          f"peak memory {loop_peak_gib:.2f} GiB; eval after: psnr {after['psnr']:.3f} dB, "
+          f"ssim {after['ssim']:.4f}")
+    windows = window_ms(loop.timer.times, loop_tc.sync_every)
+    spans = {"steps 1-40": windows[:4], "41-80": windows[4:8], "81-200": windows[8:],
+             "all": windows}
+    for label, w in spans.items():
+        qs = statistics.quantiles(w, n=4)
+        print(f"  step time, {label}: median {statistics.median(w):.3f} ms "
+              f"(quartiles {qs[0]:.3f} / {qs[2]:.3f}) over {len(w)} windows of "
+              f"{loop_tc.sync_every} steps")
+    check([e["step"] for e in events] == [40, 80, 160, 200],
+          "refines at 40, 80, 160 and 200: the one at 120 is paused after the reset")
+    check([e["reset"] for e in events] == [False, True, False, False],
+          "one opacity reset, at step 80; none at 160 without a recovery window")
+    check(any(e["n_culled"] > 0 for e in events)
+          and any(e["n_split"] + e["n_cloned"] > 0 for e in events),
+          "refines culled and densified")
+    check(any(e["n_culled"] > 0 and e["n_split"] + e["n_cloned"] > 0 for e in events),
+          "one refine both culled and densified")
+    grown = [e for e in events if e["grew"]]
+    check(bool(grown) and grown[0]["capacity"] == 2 * LOOP_CAPACITY, "the capacity doubled")
+    capacity = events[-1]["capacity"]
+    gauss = loop.params.gaussians
+    check(all(getattr(gauss, f).shape[0] == capacity for f in gauss._fields)
+          and loop.strat_state.grad_accum.shape[0] == capacity, "every leaf at the new capacity")
+    for leaf in loop.optimizer.gaussian_leaves():
+        state = loop.optimizer.adam.state[leaf]
+        check(state["exp_avg"].shape == leaf.shape and float(state["step"]) == LOOP_STEPS
+              and bool(torch.isfinite(state["exp_avg"]).all())
+              and bool(state["exp_avg"][:N_GAUSS].any()),
+              "Adam's moments carried across the growth")
+    check(loop.optimizer.schedule.last_epoch == LOOP_STEPS, "the decays' count carried")
+    by_step = {rec["step"]: rec for rec in history}
+    grow_step = grown[0]["step"]
+    check(grow_step < LOOP_STEPS
+          and by_step[grow_step + 10]["loss"] < 2 * by_step[grow_step]["loss"],
+          "training carries on across the growth and the loss does not jump")
+    check(all(np.isfinite(v) for rec in history for v in rec.values()), "every record finite")
+    check(all(bool(torch.isfinite(p).all()) for p in loop.optimizer.params), "parameters finite")
+    check(len(fullest) == len(events) and not events[0]["adapted"] and events[1]["adapted"],
+          "max_per_tile grows on the second over-tolerance probe")
+    new_k = K
+    while new_k < fullest[1] and new_k < loop_tc.max_tile_capacity:
+        new_k *= 2
+    new_k = min(new_k, loop_tc.max_tile_capacity)
+    check(events[1]["max_per_tile"] == new_k > K and loop.model_config.max_per_tile >= new_k,
+          f"max_per_tile grew to {new_k}, the power of two at or above the fullest tile "
+          f"({fullest[1]}), capped by {loop_tc.max_tile_capacity}")
+    check(by_step[LOOP_STEPS]["tile_overflow_frac"] is not None, "the tile probe is recorded")
+    for k, n in launches.items():
+        per_step = 2 if k == "row_gather" else 1
+        check(n == per_step * (LOOP_STEPS + n_eval_steps),
+              f"{k} launched {per_step}x on each of the loop's train and eval-camera steps")
+    check(all(float(v.detach().abs().sum()) > 0 for v in loop.params.eval_camera_opt.values()),
+          "the eval cameras' corrections moved")
+    check(after["psnr"] > before["psnr"], f"eval PSNR rises: {before['psnr']:.3f} -> "
+                                          f"{after['psnr']:.3f} dB")
+    with torch.no_grad():    # the three compositing kernels at the grown K, trained model
+        k2 = loop.model_config.max_per_tile
+        lists2, sp2, eps2, _, _ = kernel_inputs(cfg.tile_size, loop.params, k2)
+        blocks2 = seg_copy(sp2, lists2.starts, k2, impl="cuda")
+        check(torch.equal(blocks2, seg_copy_plain(sp2, lists2.starts, k2)),
+              f"seg_copy bitwise at K = {k2}")
+        got = rk.rasterize_fwd(blocks2, lists2.counts, rs, cfg.tile_size, tiles_x, RES, eps=eps2,
+                               impl="cuda")
+        want = rk.rasterize_fwd(blocks2, lists2.counts, rs, cfg.tile_size, tiles_x, RES,
+                                eps=eps2, impl="torch")
+        err_c = (got[:, :, [0, 1, 2, 4]] - want[:, :, [0, 1, 2, 4]]).abs().max().item()
+        err_d = (got[:, :, 3] - want[:, :, 3]).abs().max().item()
+        print(f"after the loop, K = {k2}: fullest tile {int(lists2.counts.max())}, landed "
+              f"{int(lists2.counts.sum())}, overflow {int(lists2.overflow)}; rasterize_fwd vs "
+              f"plain max|err| rgb/T {err_c:.3g}, depth {err_d:.3g}")
+        check(err_c <= 1e-4 and err_d <= 1e-3, f"rasterize_fwd at K = {k2} within tolerance")
+        check_bwd(f"tile 16, S=5, K = {k2}", blocks2, lists2, eps2, cfg.tile_size, tiles_x, RES)
+        del lists2, sp2, blocks2, got, want
+    del loop, scene, train_imgs, eval_imgs
+
+    # phase 6: the probe entry points' timing loops (the path of the probe kernels)
     with torch.no_grad():
-        # phase 5: the kernels' times, on phase 2's inputs (the initial model)
+        reset_counts()
+        gather_res = probes["probe_kernel_gather_torch"].bench(
+            probe_inputs["probe_kernel_gather_torch"], KERNEL_RUNS, KERNEL_REPS)
+        dma_res = probes["probe_seg_dma_torch"].bench(
+            probe_inputs["probe_seg_dma_torch"], KERNEL_RUNS, KERNEL_REPS)
+        cumsum_res = probes["probe_cumsum_torch"].bench(probe_inputs["probe_cumsum_torch"], 5, 5)
+        torch.cuda.synchronize()
+    probe_launches = {"row_scatter": row_scatter.launches, "seg_dma": seg_dma.launches,
+                      "chunk_cumsum": chunk_cumsum.launches}
+    print(f"probes: launches {probe_launches}")
+    for k, n in probe_launches.items():
+        check(n > 0, f"{k} launched by its probe")
+    del probe_inputs
+
+    with torch.no_grad():
+        # phase 7: the kernels' times, on phase 2's inputs (the initial model)
         counts = lists.counts.long()
         n_tiles = counts.shape[0]
         npix = tiling.tile_wh(cfg.tile_size)[0] * tiling.tile_wh(cfg.tile_size)[1]
@@ -478,6 +712,49 @@ def main() -> int:
         seg_rows_read = int(torch.unique(pos).numel())
         seg_bytes = (seg_rows_read + n_tiles * K) * sp.shape[1] * 4 + n_tiles * 4
         seg_bound = seg_bytes / hbm * 1e3
+
+        # row_gather at the train step's two shapes: the sorted ids over the
+        # parameter table (with the K pad rows), the entry slots over the slot
+        # gradients. Bytes: every output row written, the ids read, and each
+        # distinct source row read once (the sources fit the L2).
+        def gather_times(src, ids, pad):
+            n = ids.numel()
+            nbytes = ((n + pad + int(torch.unique(ids).numel())) * src.shape[1] + n) * 4
+            return {"ms": time_cuda(lambda: row_gather(src, ids, impl="cuda", pad_rows=pad),
+                                    KERNEL_RUNS, KERNEL_REPS),
+                    "plain_ms": time_cuda(lambda: row_gather_plain(src, ids, pad), KERNEL_RUNS,
+                                          KERNEL_REPS),
+                    "library_ms": time_cuda(lambda: torch.index_select(src, 0, ids), KERNEL_RUNS,
+                                            KERNEL_REPS),
+                    "bytes": nbytes, "bound_ms": nbytes / hbm * 1e3, "rows": n}
+
+        gather_fwd = gather_times(table, lists.sorted_ids.contiguous(), K)
+        gather_bwd = gather_times(d_slots, entry_slots, 0)
+        for label, r in (("parameter table", gather_fwd), ("slot gradients", gather_bwd)):
+            print(f"row_gather, {label}, {r['rows']} rows: {r['ms']:.4f} ms (plain "
+                  f"{r['plain_ms']:.4f}, index_select {r['library_ms']:.4f}, bound "
+                  f"{r['bound_ms']:.4f} ms from {r['bytes']} B)")
+        a = gather_res["row_gather"]
+        print(f"row_gather, probe shape: {a['ms']:.4f} ms (plain {a['plain_ms']:.4f}, "
+              f"index_select {a['library_ms']:.4f}; cold cache {a['cold_ms']:.4f}, "
+              f"index_select {a['library_cold_ms']:.4f}; bound {a['bytes'] / hbm * 1e3:.4f} ms "
+              f"from {a['bytes']} B)")
+        b = gather_res["row_scatter"]
+        print(f"row_scatter, probe shape: {b['ms']:.4f} ms, {b['with_sort_ms']:.4f} with the "
+              f"sort (plain {b['plain_ms']:.4f}, index_add_ {b['library_ms']:.4f}; cold cache "
+              f"{b['cold_ms']:.4f}, index_add_ {b['library_cold_ms']:.4f}; bound "
+              f"{b['bytes'] / hbm * 1e3:.4f} ms from {b['bytes']} B)")
+        print(f"seg_dma, probe shape: " + ", ".join(f"{k} {v:.4f}"
+                                                     for k, v in dma_res["variants"].items())
+              + f" ms; seg_copy {dma_res['seg_copy_ms']:.4f}, plain {dma_res['plain_ms']:.4f}, "
+              f"index_select {dma_res['library_ms']:.4f}; cold cache {dma_res['best']} "
+              f"{dma_res['cold_ms']:.4f}, seg_copy {dma_res['seg_copy_cold_ms']:.4f}; bound "
+              f"{dma_res['bytes'] / hbm * 1e3:.4f} ms from {dma_res['bytes']} B")
+        print(f"chunk_cumsum, probe shape: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in cumsum_res["variants"].items())
+            + f" ms; plain {cumsum_res['plain_ms']:.4f}, torch.cumsum(x, 1) - x "
+            f"{cumsum_res['library_ms']:.4f}, bound {cumsum_res['bytes'] / hbm * 1e3:.4f} ms "
+            f"from {cumsum_res['bytes']} B")
 
         fwd_ms = time_cuda(lambda: rk.rasterize_fwd(*fwd_args, eps=eps, impl="cuda"),
                            KERNEL_RUNS, KERNEL_REPS)
@@ -535,6 +812,31 @@ def main() -> int:
          "launches": launches["rasterize_bwd"], "max_abs_err": errs["rasterize_bwd"],
          "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_times[bwd_bound_by],
          "bound_by": bwd_bound_by, "library_ms": None},
+        # the train step's forward gather (the sorted ids over the parameter table)
+        {"name": "row_gather", "route": "cuda",
+         "source": "splat_tpu_torch/ops/cuda/csrc/row_gather.cu",
+         "replaces": "scripts_dev/probe_kernel_gather.py:59", "launches": launches["row_gather"],
+         "max_abs_err": errs["row_gather"], "ms": gather_fwd["ms"],
+         "plain_ms": gather_fwd["plain_ms"], "bound_ms": gather_fwd["bound_ms"],
+         "bound_by": "bytes", "library_ms": gather_fwd["library_ms"]},
+        # the probe kernels, at their probes' shapes; launches from the probes' timing loops
+        {"name": "row_scatter", "route": "cuda",
+         "source": "splat_tpu_torch/ops/cuda/csrc/row_scatter.cu",
+         "replaces": "scripts_dev/probe_kernel_gather.py:90",
+         "launches": probe_launches["row_scatter"], "max_abs_err": errs["row_scatter"],
+         "ms": b["ms"], "plain_ms": b["plain_ms"], "bound_ms": b["bytes"] / hbm * 1e3,
+         "bound_by": "bytes", "library_ms": b["library_ms"]},
+        {"name": "seg_dma", "route": "cuda", "source": "splat_tpu_torch/ops/cuda/csrc/seg_dma.cu",
+         "replaces": "scripts_dev/probe_seg_dma.py:96", "launches": probe_launches["seg_dma"],
+         "max_abs_err": errs["seg_dma"], "ms": dma_res["ms"], "plain_ms": dma_res["plain_ms"],
+         "bound_ms": dma_res["bytes"] / hbm * 1e3, "bound_by": "bytes",
+         "library_ms": dma_res["library_ms"]},
+        {"name": "chunk_cumsum", "route": "cuda",
+         "source": "splat_tpu_torch/ops/cuda/csrc/chunk_cumsum.cu",
+         "replaces": "scripts_dev/probe_cumsum.py:42", "launches": probe_launches["chunk_cumsum"],
+         "max_abs_err": errs["chunk_cumsum"], "ms": cumsum_res["ms"],
+         "plain_ms": cumsum_res["plain_ms"], "bound_ms": cumsum_res["bytes"] / hbm * 1e3,
+         "bound_by": "bytes", "library_ms": cumsum_res["library_ms"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)  # as `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` gives it

@@ -40,6 +40,7 @@ def main() -> int:
     from splat_tpu_torch.models import splatfacto as sf
     from splat_tpu_torch.models import strategy
     from splat_tpu_torch.models.convert import cameras_from_numpy, params_from_numpy
+    from splat_tpu_torch.utils.profiling import nvidia_smi
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -93,7 +94,7 @@ def main() -> int:
                and e.key not in host_keys]
     device_us = sum(e.self_device_time_total for e in kernels)
     host_ops = sum(e.count for e in avgs if e.key.startswith("aten::"))
-    print(f"card: {chip_smoke.nvidia_smi('name,power.limit')}")
+    print(f"card: {nvidia_smi('name,power.limit')}")
     unit = "step" if args.train else "camera"
     print(f"profiled: {n} {unit}s, wall {wall_us / n / 1e3:.3f} ms/{unit}, device busy "
           f"{device_us / n / 1e3:.3f} ms/{unit} = {device_us / wall_us:.1%} of wall; "

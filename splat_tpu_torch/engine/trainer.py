@@ -1,6 +1,6 @@
-"""One training step of the method (port of `splat_tpu/engine/trainer.py`'s
-`TrainerConfig` learning rates, `param_labels`, `build_optimizer` and
-`_train_step_body`).
+"""The training loop of the method (port of `splat_tpu/engine/trainer.py`,
+single device: `TrainerConfig`, the per-group optimizer, `train_step`, the
+eval-camera step and `Trainer` with `run`, `evaluate` and `render_eval`).
 
 `Optimizer` makes one Adam parameter group per label of the JAX
 package's `param_labels` (eps 1e-15, the splatfacto 1.1.0 learning rates),
@@ -10,24 +10,46 @@ init) ** (c / max_steps) at the optimizer's update count c before the
 update, so the first update uses init. `alive` is in no group (the JAX
 package's `set_to_zero`). `train_step` renders, takes the loss and its
 gradients, updates the parameters in place and accumulates the
-densification statistics. The eval-camera step, refine and reset schedule,
-capacity growth, progressive resolution, checkpoints and the `train()` loop
-come with the trainer slice.
+densification statistics.
+
+`Trainer.run` cycles the train cameras in a shuffled epoch order, takes an
+eval-camera step (a second, constant-rate Adam over the eval pose and
+velocity corrections with the scene frozen) every `eval_opt_every` steps,
+and at refine boundaries culls and densifies (`models/strategy.py`), zeroes
+the Adam moments of the refreshed slots, doubles the capacity when the alive
+share passes `grow_threshold` (moments and schedule counts carried over),
+probes the unclamped per-tile populations to grow `max_per_tile` or
+`max_total_entries`, and resets the opacities on schedule. The host reads
+device values only at refine and log boundaries. Random draws (camera order,
+split offsets, the random background) come from `torch.Generator`s seeded
+with `TrainerConfig.seed`. Checkpoints and the multi-device mesh are not
+ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
+from pathlib import Path
+from typing import Callable
 
+import numpy as np
 import torch
 
 from ..cameras.cameras import Cameras
+from ..data.dataparser import ParsedScene
+from ..data.dataset import ImageCache
+from ..device import resolve_device
 from ..models import splatfacto as sf
 from ..models import strategy as st
+from ..ops.ssim import psnr as psnr_fn
+from ..ops.ssim import ssim as ssim_fn
+from ..utils.profiling import StepTimer
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainerConfig:
     max_steps: int = 20000
+    seed: int = 42
     # per-group learning rates (splatfacto 1.1.0)
     lr_means: float = 1.6e-4
     lr_means_final: float = 1.6e-6
@@ -41,6 +63,32 @@ class TrainerConfig:
     lr_camera_opt_final: float = 6e-5
     lr_velocity_opt: float = 1e-3
     lr_velocity_opt_final: float = 1e-4
+    # schedule
+    eval_opt_every: int = 5            # eval-camera step cadence
+    grow_threshold: float = 0.9        # grow the capacity when the alive share exceeds this
+    max_capacity: int = 1 << 21
+    checkpoint_every: int = 5000
+    log_every: int = 100
+    # wait for the device only every k steps, so the host runs ahead of it;
+    # the step-time percentiles then aggregate whole windows
+    sync_every: int = 10
+    # the JAX package runs this many steps per dispatch through lax.scan, the
+    # same step sequence; this package dispatches eagerly, so the field is
+    # accepted and the steps run one by one
+    scan_steps: int = 1
+    # JAX buffer donation; no counterpart here (updates are in place)
+    donate_buffers: bool = True
+    # adaptive per-tile depth-list capacity: at refine boundaries, probe the
+    # unclamped per-tile populations on the last trained camera; when the
+    # dropped share exceeds tile_overflow_tol on two probes in a row, grow
+    # model.max_per_tile by doubling up to max_tile_capacity
+    adapt_tile_capacity: bool = True
+    tile_overflow_tol: float = 0.002   # share of all entries dropped
+    max_tile_capacity: int = 2048
+
+
+# the per-Gaussian groups: their leaves' leading size is the capacity
+GAUSSIAN_GROUPS = ("means", "scales", "quats", "opacities", "features_dc", "features_rest")
 
 
 def param_groups(params: sf.ModelParams) -> dict[str, list[torch.Tensor]]:
@@ -94,6 +142,46 @@ class Optimizer:
         self.adam.step()
         self.schedule.step()    # the next update's learning rates
 
+    def gaussian_leaves(self):
+        for group in self.adam.param_groups:
+            if group["name"] in GAUSSIAN_GROUPS:
+                yield from group["params"]
+
+    @torch.no_grad()
+    def grow(self, new_leaves: dict[torch.Tensor, torch.Tensor]) -> None:
+        """Swap per-Gaussian leaves for their grown copies (port of
+        `grow_opt_state`): `new_leaves` maps each old leaf to its padded
+        successor. Adam's moments move to the new leaf padded with zeros; its
+        step count, the group's learning rate and the schedule's count stay."""
+        for group in self.adam.param_groups:
+            for i, old in enumerate(group["params"]):
+                new = new_leaves.get(old)
+                if new is None:
+                    continue
+                new.requires_grad_(True)
+                group["params"][i] = new
+                state = self.adam.state.pop(old, None)
+                if state:
+                    pad = new.shape[0] - old.shape[0]
+                    for key in ("exp_avg", "exp_avg_sq"):
+                        m = state[key]
+                        state[key] = torch.cat([m, m.new_zeros((pad,) + tuple(m.shape[1:]))])
+                    self.adam.state[new] = state
+        self.params = [new_leaves.get(p, p) for p in self.params]
+
+    @torch.no_grad()
+    def zero_slots(self, changed: torch.Tensor) -> None:
+        """Zero Adam's moments at the refreshed Gaussian slots (port of
+        `zero_gaussian_opt_slots`; splatfacto resets the optimizer state of
+        duplicated and split parameters). changed: (capacity,) bool."""
+        for leaf in self.gaussian_leaves():
+            state = self.adam.state.get(leaf)
+            if not state:
+                continue
+            mask = changed.reshape((-1,) + (1,) * (leaf.ndim - 1))
+            for key in ("exp_avg", "exp_avg_sq"):
+                state[key].masked_fill_(mask, 0.0)
+
 
 def train_step(params: sf.ModelParams, optimizer: Optimizer, strat_state: st.StrategyState,
                config: sf.SplatfactoConfig, camera: Cameras, gt: torch.Tensor, step: int,
@@ -118,3 +206,331 @@ def train_step(params: sf.ModelParams, optimizer: Optimizer, strat_state: st.Str
     aux = {k: v.detach() for k, v in aux.items()}
     aux["n_visible"] = visible.sum()
     return loss.detach(), aux, strat_state
+
+
+class EvalOptimizer:
+    """The eval cameras' own Adam (constant `lr_camera_opt`, eps 1e-15) over
+    the eval pose and velocity corrections: the JAX package's
+    `optax.adam(tc.lr_camera_opt, eps=1e-15)` over {"cam", "vel"}."""
+
+    def __init__(self, params: sf.ModelParams, tc: TrainerConfig):
+        self.leaves = (list(params.eval_camera_opt.values())
+                       + list(params.eval_velocity_opt.values()))
+        for p in self.leaves:
+            p.requires_grad_(True)
+        self.adam = torch.optim.Adam(self.leaves, lr=tc.lr_camera_opt, eps=1e-15)
+
+
+def eval_opt_step(params: sf.ModelParams, eval_optimizer: EvalOptimizer,
+                  config: sf.SplatfactoConfig, camera: Cameras, gt: torch.Tensor, step: int,
+                  generator: torch.Generator | None = None) -> torch.Tensor:
+    """Optimise the eval cameras' pose and velocity corrections without
+    touching the scene (port of `make_eval_opt_step`): every other leaf is
+    detached, the gradient is taken with respect to the eval leaves only, and
+    only they are updated, in place. Returns the loss."""
+    g = params.gaussians
+    frozen = params._replace(
+        gaussians=sf.GaussianParams(*(t.detach() for t in g)),
+        background_logit=params.background_logit.detach(),
+        camera_opt={k: v.detach() for k, v in params.camera_opt.items()},
+        velocity_opt={k: v.detach() for k, v in params.velocity_opt.items()})
+    bg = sf.background_color(frozen, config, generator)
+    out = sf.render_camera(frozen, camera, config, sf.active_sh_degree(config, step), bg,
+                           is_eval_camera=True)
+    loss, _ = sf.compute_losses(sf.gamma_encode(out.rgb, config), gt, frozen, config)
+    grads = torch.autograd.grad(loss, eval_optimizer.leaves, allow_unused=True)
+    for p, grad in zip(eval_optimizer.leaves, grads):
+        p.grad = grad
+    eval_optimizer.adam.step()
+    eval_optimizer.adam.zero_grad(set_to_none=True)
+    return loss.detach()
+
+
+@dataclasses.dataclass
+class Trainer:
+    """Train one scene on one device (port of the JAX package's `Trainer`).
+
+    scene: the parsed cameras and seed cloud; train_images, eval_images: the
+    two image stacks, in the order of the scene's cameras. The model and every
+    image live on `device` (CUDA unless "cpu" is asked for)."""
+
+    scene: ParsedScene
+    model_config: sf.SplatfactoConfig
+    trainer_config: TrainerConfig = TrainerConfig()
+    train_images: ImageCache | None = None
+    eval_images: ImageCache | None = None
+    device: str | torch.device | None = None
+
+    def __post_init__(self):
+        if self.train_images is None or self.eval_images is None:
+            raise ValueError("Trainer needs the train and eval image stacks (ImageCache)")
+        self.device = dev = resolve_device(self.device)
+        cfg, tc = self.model_config, self.trainer_config
+        self.params = sf.init_model(
+            self.scene.points_xyz, self.scene.points_rgb, len(self.scene.train_cameras),
+            len(self.scene.eval_cameras), cfg, seed=tc.seed, device=dev)
+        # per-camera parameters are routed by position within the split
+        self.train_cams = self._localize(self.scene.train_cameras)
+        self.eval_cams = self._localize(self.scene.eval_cameras)
+        if cfg.blur_anchors == 0:
+            cfg = dataclasses.replace(
+                cfg, blur_anchors=sf.resolve_blur_anchors(cfg, self.train_cams))
+            self.model_config = cfg
+        self.optimizer = Optimizer(self.params, tc)
+        self.strat_state = st.init_strategy_state(
+            self.params.gaussians.alive.shape[0], tc.seed, device=dev)
+        self.eval_optimizer = (EvalOptimizer(self.params, tc)
+                               if cfg.optimize_eval_cameras and self.params.eval_camera_opt
+                               else None)
+        self._eval_imgs_dev = torch.as_tensor(self.eval_images.images).to(dev)
+        self._sampler = torch.Generator().manual_seed(tc.seed)        # camera order (host)
+        self._bg_generator = torch.Generator(device=dev).manual_seed(tc.seed)
+        self._order: list[int] | None = None
+        self._pyramid: dict[int, tuple[Cameras, torch.Tensor]] = {}
+        self._probe_cam: Cameras | None = None
+        self._overflow_streak = 0
+        self._tile_overflow_frac: float | None = None
+        self._entry_stream_pressure: float | None = None
+        self.step = 0
+        self._last_reset_step = -(10**9)
+        self.history: list[dict] = []
+        # one record per refine: the counts, and whether the capacity or the
+        # tile capacity grew and the opacities were reset at that boundary
+        self.refine_events: list[dict] = []
+        self.timer = StepTimer(device=dev)
+
+    def _localize(self, cams: Cameras) -> Cameras:
+        fields = {k: getattr(cams, k).to(self.device) for k in Cameras._tensor_fields}
+        fields["cam_idx"] = torch.arange(len(cams), dtype=torch.int64, device=self.device)
+        return Cameras(width=cams.width, height=cams.height, **fields)
+
+    # ------------------------------------------- adaptive tile capacity
+    def _probe_counts(self, cam: Cameras) -> np.ndarray:
+        """The unclamped per-tile populations of `cam`, on the host."""
+        with torch.no_grad():
+            return sf.binning_counts(self.params, cam, self.model_config).cpu().numpy()
+
+    def _maybe_adapt_tile_capacity(self) -> bool:
+        """Grow max_per_tile (doubling) when the probe shows the binning
+        dropping more than tile_overflow_tol of its entries on two probes in
+        a row, and max_total_entries when the landed entries pass 80 % of it.
+        Nothing downstream caches either: the kernels take K per launch and
+        every binning rebuilds its lists."""
+        tc, cfg = self.trainer_config, self.model_config
+        cam = self._probe_cam
+        if not tc.adapt_tile_capacity or cam is None:
+            return False
+        counts = self._probe_counts(cam).astype(np.int64)
+        total = max(int(counts.sum()), 1)
+        over = int(np.maximum(counts - cfg.max_per_tile, 0).sum())
+        self._tile_overflow_frac = over / total
+
+        # the sorted stream's cap drops whole high-tile-id segments, so it
+        # must never bind: grow it at 80 % pressure, whatever max_per_tile does
+        grew_stream = False
+        if cfg.max_total_entries > 0:
+            landed = int(np.minimum(counts, cfg.max_per_tile).sum())
+            self._entry_stream_pressure = landed / cfg.max_total_entries
+            if landed > 0.8 * cfg.max_total_entries:
+                new_cap = cfg.max_total_entries
+                while landed > 0.8 * new_cap:
+                    new_cap *= 2
+                cfg = dataclasses.replace(cfg, max_total_entries=new_cap)
+                self.model_config = cfg
+                grew_stream = True
+
+        if cfg.max_per_tile >= tc.max_tile_capacity:
+            return grew_stream
+        if over <= tc.tile_overflow_tol * total:
+            self._overflow_streak = 0
+            return grew_stream
+        self._overflow_streak += 1
+        if self._overflow_streak < 2:
+            return grew_stream
+        need = int(counts.max())
+        new_k = cfg.max_per_tile
+        while new_k < need and new_k < tc.max_tile_capacity:
+            new_k *= 2
+        new_k = min(new_k, tc.max_tile_capacity)
+        if new_k == cfg.max_per_tile:
+            return grew_stream
+        self.model_config = dataclasses.replace(cfg, max_per_tile=new_k)
+        self._overflow_streak = 0
+        return True
+
+    # ---------------------------------------------- progressive resolution
+    def _resolution_level(self) -> int:
+        cfg = self.model_config
+        if cfg.num_downscales <= 0:
+            return 0
+        return max(0, cfg.num_downscales - self.step // cfg.resolution_schedule)
+
+    def _level_data(self, level: int) -> tuple[Cameras, torch.Tensor]:
+        """(cameras, images) at resolution level `level` (downscale 2^level),
+        cached; the image stacks stay on the device. Level k crops to a
+        multiple of d = 2^k, takes the d x d box mean (once, on the host, in
+        the JAX package's arithmetic) and divides the intrinsics by d."""
+        if level not in self._pyramid:
+            imgs, cams = self.train_images.images, self.train_cams
+            if level > 0:
+                d = 1 << level
+                h, w = imgs.shape[1] // d * d, imgs.shape[2] // d * d
+                imgs = imgs[:, :h, :w].reshape(
+                    imgs.shape[0], h // d, d, w // d, d, 3).mean(axis=(2, 4))
+                scaled = {k: getattr(cams, k) / d for k in ("fx", "fy", "cx", "cy")}
+                cams = dataclasses.replace(cams, width=cams.width // d,
+                                           height=cams.height // d, **scaled)
+            self._pyramid[level] = (cams, torch.as_tensor(imgs).to(self.device))
+        return self._pyramid[level]
+
+    # ------------------------------------------------------------ schedule
+    def _maybe_grow(self) -> bool:
+        """Double the capacity when the alive share passes grow_threshold.
+        Every per-Gaussian leaf is replaced by a padded copy; Adam's moments
+        and the schedule counts move with it, and the strategy state is
+        padded (its generator is kept)."""
+        g = self.params.gaussians
+        cap = g.alive.shape[0]
+        tc = self.trainer_config
+        frac = float(g.alive.sum()) / cap
+        if frac <= tc.grow_threshold or cap >= tc.max_capacity:
+            return False
+        new_cap = min(cap * 2, tc.max_capacity)
+        grown = st.grow_capacity(sf.GaussianParams(*(t.detach() for t in g)), new_cap)
+        self.optimizer.grow({getattr(g, f): getattr(grown, f)
+                             for f in sf.GaussianParams._fields if f != "alive"})
+        self.params = self.params._replace(gaussians=grown)
+        self.strat_state = st.grow_strategy_state(self.strat_state, new_cap)
+        return True
+
+    def _next_camera_index(self, n_train: int) -> int:
+        """The next train camera in the shuffled epoch order: a new
+        permutation whenever the step count reaches a multiple of n_train."""
+        i = self.step % n_train
+        if i == 0 or self._order is None:
+            self._order = torch.randperm(n_train, generator=self._sampler).tolist()
+        return int(self._order[i])
+
+    def _split_noise(self, shape) -> tuple[torch.Tensor, torch.Tensor]:
+        """The two standard-normal samples a refine's splits use."""
+        gen = self.strat_state.generator
+        return (torch.randn(shape, generator=gen, device=self.device),
+                torch.randn(shape, generator=gen, device=self.device))
+
+    def _refine_gaussians(self) -> dict:
+        """Cull and densify in place; returns the refine's counts."""
+        g = self.params.gaussians
+        new_g, self.strat_state, changed, info = st.refine(
+            g, self.strat_state, self.step, self.model_config, self._split_noise(g.means.shape))
+        self.optimizer.zero_slots(changed)
+        with torch.no_grad():
+            for old, new in zip(g, new_g):
+                old.copy_(new)
+        return {k: int(v) for k, v in info.items()}
+
+    def run(self, max_steps: int | None = None, progress_cb: Callable | None = None):
+        """Train for max_steps more steps (default trainer_config.max_steps);
+        returns the history, one record per log_every steps."""
+        tc = self.trainer_config
+        n_train = len(self.train_cams)
+        steps = max_steps if max_steps is not None else tc.max_steps
+        t0 = time.time()
+        for it in range(steps):
+            cfg = self.model_config
+            level_cams, level_imgs = self._level_data(self._resolution_level())
+            ci = self._next_camera_index(n_train)
+            cam, gt = level_cams[ci], level_imgs[ci]
+            self._probe_cam = cam
+            self.timer.start()
+            loss, _aux, self.strat_state = train_step(
+                self.params, self.optimizer, self.strat_state, cfg, cam, gt, self.step,
+                self._bg_generator)
+            self.timer.stop(sync=((self.step + 1) % tc.sync_every == 0 or it + 1 == steps
+                                  or (self.step + 1) % cfg.refine_every == 0))
+
+            # eval-camera optimisation, the scene frozen
+            if (self.eval_optimizer is not None and self.step % tc.eval_opt_every == 0
+                    and len(self.eval_cams) > 0):
+                ei = (self.step // tc.eval_opt_every) % len(self.eval_cams)
+                eval_opt_step(self.params, self.eval_optimizer, cfg, self.eval_cams[ei],
+                              self._eval_imgs_dev[ei], self.step, self._bg_generator)
+
+            self.step += 1
+
+            # refinement pauses after each opacity reset until every train
+            # view has been seen again (splatfacto 1.1.0's guard), so the
+            # reset opacities are not judged before they settle
+            reset_pause = n_train + cfg.refine_every
+            if (self.step % cfg.refine_every == 0 and cfg.warmup_length <= self.step
+                    and self.step - self._last_reset_step > reset_pause):
+                event = {"step": self.step, **self._refine_gaussians()}
+                event["grew"] = self._maybe_grow()
+                event["adapted"] = self._maybe_adapt_tile_capacity()
+                cfg = self.model_config
+                n_ref = self.step // cfg.refine_every
+                # never reset without a recovery window before the run ends:
+                # the model would be evaluated with every opacity clamped
+                can_recover = self.step + reset_pause <= tc.max_steps
+                event["reset"] = bool(cfg.reset_alpha_every > 0
+                                      and n_ref % cfg.reset_alpha_every == 0
+                                      and self.step < cfg.stop_split_at and can_recover)
+                if event["reset"]:
+                    g = self.params.gaussians
+                    with torch.no_grad():
+                        g.opacities_logit.copy_(st.reset_opacity(g, cfg).opacities_logit)
+                    self._last_reset_step = self.step
+                event.update(capacity=self.params.gaussians.alive.shape[0],
+                             max_per_tile=cfg.max_per_tile,
+                             max_total_entries=cfg.max_total_entries)
+                self.refine_events.append(event)
+
+            if self.step % tc.log_every == 0 or self.step == steps:
+                rec = {
+                    "step": self.step,
+                    "loss": float(loss),
+                    "n_alive": int(self.params.gaussians.alive.sum()),
+                    "wall_s": time.time() - t0,
+                    **self.timer.summary(last_n=tc.log_every),
+                }
+                if self._tile_overflow_frac is not None:
+                    rec["tile_overflow_frac"] = round(self._tile_overflow_frac, 6)
+                if self._entry_stream_pressure is not None:
+                    rec["entry_stream_pressure"] = round(self._entry_stream_pressure, 4)
+                self.history.append(rec)
+                if progress_cb:
+                    progress_cb(rec)
+        return self.history
+
+    # ------------------------------------------------------------------ eval
+    @torch.no_grad()
+    def render_eval(self, idx: int) -> torch.Tensor:
+        """Eval camera idx rendered with its learned corrections: the
+        gamma-encoded (H, W, 3) image clipped to [0, 1] (gamma 1 renders are
+        unbounded above and would corrupt the SSIM statistics)."""
+        cfg = self.model_config
+        out = sf.render_camera(self.params, self.eval_cams[idx], cfg,
+                               sf.active_sh_degree(cfg, self.step),
+                               sf.background_color(self.params, cfg, self._bg_generator),
+                               is_eval_camera=True)
+        return torch.clamp(sf.gamma_encode(out.rgb, cfg), 0.0, 1.0)
+
+    @torch.no_grad()
+    def evaluate(self) -> dict:
+        """Mean PSNR and SSIM over the eval cameras."""
+        metrics = {"psnr": [], "ssim": []}
+        for i in range(len(self.eval_cams)):
+            pred, gt = self.render_eval(i), self._eval_imgs_dev[i]
+            metrics["psnr"].append(float(psnr_fn(pred, gt)))
+            metrics["ssim"].append(float(ssim_fn(pred, gt)))
+        return {k: float(np.mean(v)) for k, v in metrics.items() if v}
+
+    # ------------------------------------------------------------ checkpoint
+    def save_checkpoint(self, path: str | Path):
+        raise NotImplementedError(
+            "checkpoints are not ported yet: they come with the data slice (the JAX "
+            "package's are Orbax trees, which need JAX to read)")
+
+    def load_checkpoint(self, path: str | Path):
+        raise NotImplementedError(
+            "checkpoints are not ported yet: they come with the data slice (the JAX "
+            "package's are Orbax trees, which need JAX to read)")

@@ -15,8 +15,9 @@ rolling-shutter time, and the linear-space blur average. Three blur modes:
 regulariser and the camera-optimizer penalty) and `binning_counts` the
 unclamped per-tile populations the adaptive tile capacity reads.
 
-The config keeps the render and loss fields of the JAX config; the
-densification, resolution and sharding fields come with the trainer slice.
+The config keeps the render, loss, progressive-resolution and densification
+fields of the JAX config, with its defaults (splatfacto 1.1.0's schedule);
+the TPU tuning knob `chunk` and the mesh fields have no counterpart here.
 """
 from __future__ import annotations
 
@@ -55,6 +56,20 @@ class SplatfactoConfig:
     optimize_eval_velocities: bool = True
     ssim_lambda: float = 0.2
     scale_reg_weight: float = 0.1
+    # progressive resolution: train at 1 / 2^k, stepping up every
+    # resolution_schedule steps
+    num_downscales: int = 0
+    resolution_schedule: int = 3000
+    # densification schedule
+    warmup_length: int = 500
+    refine_every: int = 100
+    stop_split_at: int = 15000
+    densify_grad_thresh: float = 0.0008
+    densify_size_thresh: float = 0.01
+    cull_alpha_thresh: float = 0.1
+    cull_scale_thresh: float = 0.5
+    reset_alpha_every: int = 30                # in refinements
+    n_split_samples: int = 2
     tile_size: int | tuple[int, int] = 16      # int (square) or (w, h)
     max_per_tile: int = 256                    # per-tile depth-list capacity
     max_tiles_per_gaussian: int = 16           # footprint cap (span^2 tiles)

@@ -17,6 +17,7 @@ import torch
 from .. import tiling
 from ..projection import ProjectedGaussians
 from .rasterize_kernels import NPARAM, PARAM_STRIDE, rasterize_fwd
+from .row_gather import row_gather as _row_gather
 from .seg_copy import seg_copy as _seg_copy
 
 
@@ -44,15 +45,17 @@ def pack_param_table(
     return torch.nn.functional.pad(table, (0, PARAM_STRIDE - NPARAM, 0, 1))  # (N+1, 16)
 
 
-def sorted_stream(table: torch.Tensor, sorted_ids: torch.Tensor, k_pad: int) -> torch.Tensor:
+def sorted_stream(table: torch.Tensor, sorted_ids: torch.Tensor, k_pad: int,
+                  impl: str = "auto") -> torch.Tensor:
     """Table rows in sorted (tile, depth) order plus k_pad zero rows, so every
-    tile's k_pad-row window is in bounds: (L + k_pad, 16)."""
-    sp = table[sorted_ids.long()]
-    return torch.cat([sp, sp.new_zeros((k_pad, sp.shape[1]))], dim=0)
+    tile's k_pad-row window is in bounds: (L + k_pad, 16). On CUDA tensors the
+    `row_gather` kernel reads the int32 ids as they are and writes the pad
+    rows into the same buffer."""
+    return _row_gather(table, sorted_ids.contiguous(), impl=impl, pad_rows=k_pad)
 
 
 class _GatherTable(torch.autograd.Function):
-    """Forward: the sorted stream and `seg_copy`. Backward: the gather form of
+    """Forward: the sorted stream (`row_gather`) and `seg_copy`. Backward: the gather form of
     `_gather_table_bwd`: the slot gradients, plus one zero row for dropped
     entries, are gathered at `entry_slots` (one per candidate entry, N * M)
     and summed over each Gaussian's M entries in a fixed order."""
@@ -61,7 +64,8 @@ class _GatherTable(torch.autograd.Function):
     def forward(ctx, table, sorted_ids, starts, entry_slots, k_pad, impl):
         ctx.save_for_backward(entry_slots)
         ctx.n_rows = table.shape[0]
-        return _seg_copy(sorted_stream(table, sorted_ids, k_pad), starts, k_pad, impl=impl)
+        ctx.impl = impl
+        return _seg_copy(sorted_stream(table, sorted_ids, k_pad, impl), starts, k_pad, impl=impl)
 
     @staticmethod
     def backward(ctx, g):
@@ -71,7 +75,7 @@ class _GatherTable(torch.autograd.Function):
         d_slots = torch.cat([g.reshape(-1, width), g.new_zeros((1, width))])
         d_table = g.new_zeros((ctx.n_rows, width))
         if n > 0:
-            d_entries = d_slots[entry_slots.long()]             # (N * M, 16)
+            d_entries = _row_gather(d_slots, entry_slots.contiguous(), impl=ctx.impl)  # (N * M, 16)
             d_table[:n] = d_entries.reshape(n, -1, width).sum(dim=1)
         return d_table, None, None, None, None, None
 

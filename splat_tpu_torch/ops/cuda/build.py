@@ -89,6 +89,15 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(_lib_path(name)))
 
 
+def entry(lib_name: str, fn_name: str, argtypes: list) -> ctypes._CFuncPtr:
+    """The C function `fn_name` of csrc/<lib_name>.cu with its argument types
+    declared (pointers and the stream as c_void_p); it returns a cudaError_t."""
+    fn = getattr(load(lib_name), fn_name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def check(err: int, what: str) -> None:
     """Raise if a launch returned a nonzero cudaError_t."""
     if err != 0:

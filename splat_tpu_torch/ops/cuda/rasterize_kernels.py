@@ -252,10 +252,9 @@ def _launch_fwd(params, counts, scalars, tile_size, tiles_x, img_h):
     sw, sh = tile_wh(tile_size)
     out = torch.empty((n_tiles, n_samples, NOUT, sw * sh), dtype=torch.float32,
                       device=params.device)
-    fn = build.load("rasterize_fwd").rasterize_fwd_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = build.entry("rasterize_fwd", "rasterize_fwd_f32",
+                     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(params.device):
         stream = torch.cuda.current_stream(params.device).cuda_stream
         rasterize_fwd.launches += 1
@@ -290,10 +289,9 @@ def rasterize_bwd(params: torch.Tensor, counts: torch.Tensor, scalars: torch.Ten
         raise ValueError(f"rasterize_bwd kernel wants whole warps: {sw}x{sh} tiles "
                          f"are not a multiple of {WARP} pixels")
     d_params = torch.empty_like(params)
-    fn = build.load("rasterize_bwd").rasterize_bwd_f32
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = build.entry("rasterize_bwd", "rasterize_bwd_f32",
+                     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(params.device):
         stream = torch.cuda.current_stream(params.device).cuda_stream
         rasterize_bwd.launches += 1

@@ -20,20 +20,21 @@ def seg_copy_plain(sp: torch.Tensor, starts: torch.Tensor, k_pad: int) -> torch.
     return sp[pos]
 
 
-def _check_inputs(sp: torch.Tensor, starts: torch.Tensor, k_pad: int) -> None:
+def check_inputs(sp: torch.Tensor, starts: torch.Tensor, k_pad: int,
+                 name: str = "seg_copy") -> None:
     if not (sp.is_cuda and starts.is_cuda and sp.device == starts.device):
-        raise ValueError(f"seg_copy kernel needs CUDA tensors on one device, got "
+        raise ValueError(f"{name} kernel needs CUDA tensors on one device, got "
                          f"{sp.device} and {starts.device}")
     if sp.dtype != torch.float32 or starts.dtype != torch.int32:
-        raise ValueError(f"seg_copy wants float32 sp and int32 starts, got "
+        raise ValueError(f"{name} wants float32 sp and int32 starts, got "
                          f"{sp.dtype}, {starts.dtype}")
     if sp.ndim != 2 or starts.ndim != 1:
-        raise ValueError(f"seg_copy wants sp (L, P) and starts (T,), got "
+        raise ValueError(f"{name} wants sp (L, P) and starts (T,), got "
                          f"{tuple(sp.shape)}, {tuple(starts.shape)}")
     if not (sp.is_contiguous() and starts.is_contiguous()):
-        raise ValueError("seg_copy wants contiguous inputs")
+        raise ValueError(f"{name} wants contiguous inputs")
     if sp.shape[1] % 4 == 0 and sp.data_ptr() % 16:
-        raise ValueError("seg_copy wants a 16-byte aligned sp for float4 copies")
+        raise ValueError(f"{name} wants a 16-byte aligned sp for float4 copies")
     if k_pad <= 0:
         raise ValueError(f"k_pad must be positive, got {k_pad}")
 
@@ -49,18 +50,16 @@ def seg_copy(sp: torch.Tensor, starts: torch.Tensor, k_pad: int,
         return seg_copy_plain(sp, starts, k_pad)
     if impl not in ("auto", "cuda"):
         raise ValueError(f"unknown impl {impl!r}")
-    _check_inputs(sp, starts, k_pad)
+    check_inputs(sp, starts, k_pad)
     if torch.is_grad_enabled() and sp.requires_grad:
         raise NotImplementedError(
             "seg_copy's CUDA kernel has no backward of its own: differentiate "
             "through ops.cuda.gather_table, whose backward gathers over entry_slots")
     n_tiles, p = starts.shape[0], sp.shape[1]
     out = torch.empty((n_tiles, k_pad, p), dtype=sp.dtype, device=sp.device)
-    lib = build.load("seg_copy")
-    fn = lib.seg_copy_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = build.entry("seg_copy", "seg_copy_f32",
+                     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(sp.device):
         stream = torch.cuda.current_stream(sp.device).cuda_stream
         seg_copy.launches += 1

@@ -20,6 +20,13 @@ kernel route against the
 plain route (impl="torch"):
 each leaf within 1e-3 * max|leaf gradient|; and the kernel route's
 gradients are bitwise repeatable (no float atomics anywhere).
+row_gather and both seg_dma variants move bits (exact). row_scatter adds each
+destination row's contributors in index order: bitwise repeatable, and within
+1e-5 of max|column| of a float64 sum rounded to float32. chunk_cumsum's "seq"
+variant adds in row order in float32 and its "warp" variant in another
+association: both within 1e-6 of max|plain| of the plain version on the CPU
+(a sequential walk that accumulates in float64), and within the JAX probe's
+own atol 1e-3 of the plain version on the card (a parallel scan).
 """
 import dataclasses
 
@@ -34,7 +41,11 @@ from splat_tpu_torch.models.convert import cameras_from_numpy, params_from_numpy
 from splat_tpu_torch.ops import cuda as kcuda
 from splat_tpu_torch.ops import rasterize, tiling
 from splat_tpu_torch.ops.cuda import rasterize_kernels as rk
+from splat_tpu_torch.ops.cuda.chunk_cumsum import chunk_cumsum, chunk_cumsum_plain
+from splat_tpu_torch.ops.cuda.row_gather import row_gather, row_gather_plain
+from splat_tpu_torch.ops.cuda.row_scatter import row_scatter, scatter_plan
 from splat_tpu_torch.ops.cuda.seg_copy import seg_copy, seg_copy_plain
+from splat_tpu_torch.ops.cuda.seg_dma import seg_dma
 
 IMG_W, IMG_H = 96, 64
 K = 128
@@ -177,9 +188,10 @@ def test_cuda_path_gradients_match_torch_route(cuda_device):
     cfg = sf.SplatfactoConfig(max_per_tile=K)
     gt = torch.rand((IMG_H, IMG_W, 3), generator=torch.Generator(device=cuda_device).manual_seed(1),
                     device=cuda_device)
-    before = rk.rasterize_bwd.launches
+    before = (rk.rasterize_bwd.launches, row_gather.launches)
     loss, grads = _train_grads(params, cams, cfg, gt)
-    assert rk.rasterize_bwd.launches > before
+    assert rk.rasterize_bwd.launches > before[0]
+    assert row_gather.launches == before[1] + 2, "the stream gather and its backward"
     loss2, grads2 = _train_grads(params, cams, cfg, gt)
     assert torch.equal(loss, loss2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
     loss_t, grads_t = _train_grads(params, cams, dataclasses.replace(cfg, impl="torch"), gt)
@@ -201,3 +213,91 @@ def test_train_step_on_card(cuda_device):
         losses.append(loss.item())
     assert all(np.isfinite(losses)) and int(aux["n_visible"]) > 0
     assert int(state.grad_count.max()) == 3
+
+
+def _seeded(dev, seed):
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_table,idx_shape,width,pad_rows",
+                         [(100_008, (1024, 512), 16, 0), (5000, (70_001,), 16, 128),
+                          (333, (17, 5), 13, 0)])
+def test_row_gather_matches_plain_on_card(cuda_device, n_table, idx_shape, width, pad_rows):
+    table = torch.randn((n_table, width), generator=_seeded(cuda_device, 0), device=cuda_device)
+    idx = torch.randint(0, n_table, idx_shape, generator=_seeded(cuda_device, 1),
+                        device=cuda_device, dtype=torch.int32)
+    before = row_gather.launches
+    got = row_gather(table, idx, impl="cuda", pad_rows=pad_rows)
+    torch.cuda.synchronize()
+    assert row_gather.launches == before + 1
+    assert torch.equal(got, row_gather_plain(table, idx, pad_rows))
+    with pytest.raises(ValueError, match="CUDA"):
+        row_gather(table.cpu(), idx.cpu(), impl="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows,idx_shape,width",
+                         [(100_008, (1024, 512), 16), (50, (4000,), 16), (777, (31, 9), 13)])
+def test_row_scatter_matches_float64_sum_on_card(cuda_device, n_rows, idx_shape, width):
+    idx = torch.randint(0, n_rows, idx_shape, generator=_seeded(cuda_device, 2),
+                        device=cuda_device, dtype=torch.int32)
+    g = torch.randn(idx_shape + (width,), generator=_seeded(cuda_device, 3), device=cuda_device)
+    got = row_scatter(idx, g, n_rows, impl="cuda")
+    again = row_scatter(idx, g, n_rows, impl="cuda", plan=scatter_plan(idx, n_rows))
+    torch.cuda.synchronize()
+    assert torch.equal(got, again), "bitwise repeatable"
+    want = torch.zeros((n_rows, width), dtype=torch.float64, device=cuda_device).index_add_(
+        0, idx.reshape(-1).long(), g.reshape(-1, width).double())
+    err = (got.double() - want).abs().amax(dim=0)
+    assert (err <= 1e-5 * want.abs().amax(dim=0)).all(), err
+    # the additions are the sequential loop's, bit for bit (np.add.at is unbuffered)
+    loop = np.zeros((n_rows, width), np.float32)
+    np.add.at(loop, idx.reshape(-1).cpu().numpy(), g.reshape(-1, width).cpu().numpy())
+    assert np.array_equal(got.cpu().numpy(), loop)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tiles,k_pad", [(4096, 256), (301, 64)])
+@pytest.mark.parametrize("tps,align", [(1, 0), (4, 0), (8, 0), (4, 8), (4, 32), (4, 128)])
+def test_seg_dma_matches_plain_on_card(cuda_device, n_tiles, k_pad, tps, align):
+    n_rows = n_tiles * 70
+    sp = torch.randn((n_rows + k_pad, 16), generator=_seeded(cuda_device, 4), device=cuda_device)
+    starts = torch.randint(0, n_rows, (n_tiles,), generator=_seeded(cuda_device, 5),
+                           device=cuda_device, dtype=torch.int32)
+    starts[-1] = n_rows                # the last window ends at the stream's last row
+    got = seg_dma(sp, starts, k_pad, tps=tps, align=align, impl="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(got, seg_copy_plain(sp, starts, k_pad))
+
+
+@pytest.mark.cuda
+def test_seg_dma_refuses_what_does_not_fit(cuda_device):
+    sp = torch.zeros((4096, 16), device=cuda_device)
+    starts = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        seg_dma(sp, starts, 512, tps=8, impl="cuda")
+    with pytest.raises(ValueError, match="multiple of 4"):
+        seg_dma(torch.zeros((4096, 13), device=cuda_device), starts, 64, impl="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 128, 1024), (3, 32, 100), (5, 256, 33)])
+@pytest.mark.parametrize("variant", ["seq", "warp"])
+def test_chunk_cumsum_matches_plain_on_card(cuda_device, shape, variant):
+    x = torch.randn(shape, generator=_seeded(cuda_device, 6), device=cuda_device) * 0.01
+    got = chunk_cumsum(x, variant=variant, impl="cuda")
+    torch.cuda.synchronize()
+    want = chunk_cumsum_plain(x.cpu())        # a sequential walk on the CPU
+    torch.testing.assert_close(got.cpu(), want, atol=1e-6 * want.abs().max().item(), rtol=0)
+    torch.testing.assert_close(got, chunk_cumsum_plain(x), atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+def test_chunk_cumsum_seq_takes_any_chunk_on_card(cuda_device):
+    x = torch.randn((7, 19, 40), generator=_seeded(cuda_device, 7), device=cuda_device)
+    want = chunk_cumsum_plain(x.cpu())
+    torch.testing.assert_close(chunk_cumsum(x, impl="cuda").cpu(), want,
+                               atol=1e-6 * want.abs().max().item(), rtol=0)
+    with pytest.raises(ValueError, match="32 lanes"):
+        chunk_cumsum(x, variant="warp", impl="cuda")

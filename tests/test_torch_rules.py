@@ -1,6 +1,8 @@
-"""Rules the port keeps: it imports no JAX and nothing of the JAX package, its
-entry points run on the card unless asked for the CPU, and its weights carry
-across from the JAX package unchanged."""
+"""Rules the port keeps: it imports no JAX and nothing of the JAX package (its
+package, `chip_smoke.py` and the `scripts_dev/*_torch.py` entry points), it
+accumulates with no scatter-add outside a kernel's plain version, its entry
+points run on the card unless asked for the CPU, and its weights carry across
+from the JAX package unchanged."""
 import ast
 import pathlib
 
@@ -17,8 +19,13 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "splat_tpu", "bench")
 
 
+SCATTER_ADDS = ("index_add_", "index_add", "scatter_add_", "scatter_add", "scatter_reduce_",
+                "scatter_reduce")
+
+
 def _port_files():
-    return sorted((ROOT / "splat_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted((ROOT / "splat_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "scripts_dev").glob("*_torch.py")))
 
 
 def _imported_roots(path):
@@ -33,6 +40,44 @@ def _imported_roots(path):
 def test_port_imports_no_jax(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
     assert not bad, f"{path.name} imports {bad}"
+
+
+def _scatter_add_calls(tree):
+    """(function name, line) of every accumulating scatter call: the
+    index_add / scatter_add / scatter_reduce family, and index_put(_) or
+    put_ with accumulate=True."""
+    def visit(node, func):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            func = node.name
+        if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute):
+            name = node.func.attr
+            accumulates = any(kw.arg == "accumulate" and not (
+                isinstance(kw.value, ast.Constant) and kw.value.value is False)
+                for kw in node.keywords)
+            if name in SCATTER_ADDS or (name in ("index_put_", "index_put", "put_")
+                                        and accumulates):
+                yield func, node.lineno
+        for child in ast.iter_child_nodes(node):
+            yield from visit(child, func)
+    yield from visit(tree, None)
+
+
+@pytest.mark.parametrize("path", sorted((ROOT / "splat_tpu_torch").rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_scatter_adds_only_in_plain_versions(path):
+    """Float atomics make a sum's order change from run to run, so the port
+    accumulates by gathers and sorted segments; only a kernel's plain version
+    (`*_plain`, sequential on the CPU) may call a scatter-add."""
+    calls = list(_scatter_add_calls(ast.parse(path.read_text(), filename=str(path))))
+    bad = [(f, line) for f, line in calls if not (f or "").endswith("_plain")]
+    assert not bad, f"{path.name}: scatter-add outside a plain version at {bad}"
+
+
+def test_scatter_add_walk_finds_what_it_should():
+    src = ("def f(x, i, v):\n    x.index_put_((i,), v, accumulate=True)\n"
+           "    x.index_put_((i,), v)\n    return x.scatter_add(0, i, v)\n"
+           "def g_plain(x, i, v):\n    return x.index_add_(0, i, v)\n")
+    assert list(_scatter_add_calls(ast.parse(src))) == [("f", 2), ("f", 4), ("g_plain", 6)]
 
 
 def test_resolve_device_defaults_to_cuda():
