@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, each of which raises (and the script exits nonzero) on failure:
-  1. build the seven CUDA kernels with nvcc (in parallel) and print the
+  1. build the eight CUDA kernels with nvcc (in parallel) and print the
      environment: card, power limit, torch / CUDA versions, TF32 flags;
   2. hold each kernel against its plain PyTorch version on the card at the
      main path's shapes (the binning of the first camera): seg_copy bitwise,
@@ -18,7 +18,10 @@ Phases, each of which raises (and the script exits nonzero) on failure:
      both variants (tps 1, 4, 8; align 8, 32, 128) bitwise on the same
      stream; row_scatter within 1e-5 of max|column| of a float64 sum and
      bitwise repeatable, and chunk_cumsum in both variants, at their probes'
-     shapes (`scripts_dev/probe_*_torch.py`);
+     shapes (`scripts_dev/probe_*_torch.py`); bwd_stacked at the backward
+     compositor's inputs and bounds, against its own plain version (the
+     stacked formulation) and against the rasterize_bwd kernel, bitwise equal
+     over two launches and over tps;
   3. the render path: 4 cameras at 1024x1024 from a 100k-Gaussian model (the
      bench scene, random SH from a seed) through `render_camera` with the
      default config (5 fused blur samples, rolling shutter, SH degree 3,
@@ -44,15 +47,36 @@ Phases, each of which raises (and the script exits nonzero) on failure:
      K (where the three compositing kernels are held against their plain
      versions again), keep every record finite, and end with a higher eval
      PSNR than it started with; prints the step time and peak memory;
-  6. the three probe entry points (`scripts_dev/probe_kernel_gather_torch.py`,
-     `probe_seg_dma_torch.py`, `probe_cumsum_torch.py`): their timing loops
-     are the path that launches row_scatter, seg_dma and chunk_cumsum;
+  6. the four probe entry points (`scripts_dev/probe_kernel_gather_torch.py`,
+     `probe_seg_dma_torch.py`, `probe_cumsum_torch.py`,
+     `probe_bwd_stacked_torch.py`): their timing loops are the path that
+     launches row_scatter, seg_dma, chunk_cumsum and bwd_stacked;
   7. time each kernel, its plain version and a library yardstick on phase
      2's inputs (the probes' inputs for the probe kernels), beside the least
      time the card could take;
-  8. print the `kernels` JSON line (launches from the loop's 200 steps, and
-     from the probes' timing loops for the three probe kernels), the card's
-     name and power limit as nvidia-smi gives them, and the result line.
+  8. train a scene from disk at full width: `data.synthetic.generate_scene`
+     writes a 1024x1024 scene directory (exposure and rolling shutter on,
+     100,000 seed points), `cli.fit.main` trains it with the flagship flags
+     (5 blur samples, rolling-shutter compensation, SO3xR3 pose and velocity
+     optimisation, eval cameras optimised) on the default schedule for 300
+     steps, every one on all 100,000 Gaussians, with an eval and a checkpoint
+     at 100, 200 and 300. The parsed cameras and decoded frames are first held
+     against the generator's own Gaussians, rendered through the trainer's
+     eval path (at least 35 dB on a camera's own frame, 15 dB less on
+     another's); the eval PSNR must rise by 0.5 dB; a fresh `Trainer` loads
+     the middle checkpoint, runs to the end and is compared with the last
+     checkpoint of the uninterrupted run (bitwise is expected; within 1e-6 it
+     passes and says so); `cli.evaluate` reloads the last checkpoint and
+     reproduces the PSNR in `metrics.json`; then two trainers carry that
+     checkpoint on for 40 steps across two refines, one of them from the
+     other's checkpoint taken before the first, and end in the same state;
+     prints the decoder and its time per image, the generation time, steps
+     per second, the checkpoint's size and its save and load times, and peak
+     memory;
+  9. print the `kernels` JSON line (launches from the loop's 200 steps, and
+     from the probes' timing loops for the four probe kernels; the launches of
+     every driven path under `launches_by_path`), the card's name and power
+     limit as nvidia-smi gives them, and the result line.
 
 Needs a CUDA device; exits nonzero without one.
 """
@@ -60,6 +84,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
 import statistics
 import sys
 import time
@@ -112,6 +137,34 @@ LOOP_SCHEDULE = dict(warmup_length=40, refine_every=40, reset_alpha_every=2,
 # the capacity doubles
 LOOP_CAPACITY = 102_400
 LOOP_SEED_POINTS = 20_000    # the seed cloud init_model sizes its scales from
+# the scene trained from disk: 16 frames of which 2 (0 and 8) are eval frames;
+# 100,000 small Gaussians (scale_mul: ~3 px on screen, a few tiles each), all
+# of them seed points, so the trainer starts where the other phases do
+FIT_FRAMES = 16
+FIT_SCENE = dict(n_gaussians=N_GAUSS, n_frames=FIT_FRAMES, img_size=RES, exposure=0.06,
+                 rolling_shutter=0.03, n_blur_samples=5, seed=SEED, n_seed_points=N_GAUSS,
+                 trajectory="shake", scale_mul=0.15)
+FIT_STEPS = 300
+FIT_FLAGS = [
+    "--max-num-iterations", str(FIT_STEPS), "--steps-per-eval", "100", "--steps-per-save", "100",
+    "--seed", str(SEED), "--trainer.log-every", "50",
+    "--pipeline.model.blur-samples", "5",
+    "--pipeline.model.rolling-shutter-compensation", "True",
+    "--pipeline.model.camera-optimizer.mode", "SO3xR3",
+    "--pipeline.model.camera-velocity-optimizer.enabled", "True",
+    "--pipeline.model.optimize-eval-cameras", "True",
+    "--pipeline.model.initial-capacity", str(LOOP_CAPACITY),
+    "nerfstudio-data", "--eval-mode", "interval", "--eval-interval", "8",
+    "--orientation-method", "none"]
+FIT_RESUME_FROM = 200
+# on an NVIDIA H100 80GB HBM3 the generator's own Gaussians rendered on the
+# parsed eval cameras read 43.6 dB against the decoded eval frames (16.1 against
+# the other camera's frame, 17.8 for the initial model), and the eval PSNR
+# rises 0.7 dB in 300 steps from a seed cloud whose position noise is three
+# times a Gaussian's size
+FIT_TRUTH_PSNR_DB = 35.0
+FIT_PSNR_GAIN_DB = 0.5
+REFINE_EVERY = 20            # of the two runs that carry the fit's checkpoint on
 
 
 def check(ok: bool, what: str) -> None:
@@ -185,26 +238,6 @@ def target_tree(seed=SEED):
     return dict(tree, gaussians=g)
 
 
-def bwd_errors(got: torch.Tensor, want: torch.Tensor, batch: int = 64) -> dict:
-    """The largest |kernel - plain| over the backward's 12 gradient columns as
-    a share of max|plain| per column, per column within each batch of
-    `batch` slots, and per (tile, slot) row. An error where the plain scale
-    is 0 counts as infinite."""
-    err = (got[:, :, :12] - want[:, :, :12]).abs()
-    ref = want[:, :, :12].abs()
-
-    def share(e, m):
-        r = e / m
-        r[e == 0] = 0.0
-        return r.max().item()
-
-    return {"column": share(err.amax(dim=(0, 1)), ref.amax(dim=(0, 1))),
-            "batch": max(share(err[:, j:j + batch].amax(dim=(0, 1)),
-                               ref[:, j:j + batch].amax(dim=(0, 1)))
-                         for j in range(0, got.shape[1], batch)),
-            "row": share(err.amax(dim=2), ref.amax(dim=2))}
-
-
 def window_ms(times: list[float], window: int) -> list[float]:
     """Per-step ms over consecutive windows of `window` steps: the trainer
     waits for the card only at a window's last step, so single steps read the
@@ -238,6 +271,7 @@ def main() -> int:
     from splat_tpu_torch.ops import rasterize, tiling
     from splat_tpu_torch.ops.cuda import build
     from splat_tpu_torch.ops.cuda import rasterize_kernels as rk
+    from splat_tpu_torch.ops.cuda.bwd_stacked import bwd_stacked, bwd_stacked_plain
     from splat_tpu_torch.ops.cuda.chunk_cumsum import chunk_cumsum
     from splat_tpu_torch.ops.cuda.row_gather import row_gather, row_gather_plain
     from splat_tpu_torch.ops.cuda.row_scatter import row_scatter
@@ -246,13 +280,241 @@ def main() -> int:
     from splat_tpu_torch.utils.profiling import nvidia_smi, time_cuda
 
     probes = {name: load_probe(name) for name in
-              ("probe_kernel_gather_torch", "probe_seg_dma_torch", "probe_cumsum_torch")}
+              ("probe_kernel_gather_torch", "probe_seg_dma_torch", "probe_cumsum_torch",
+               "probe_bwd_stacked_torch")}
     path_kernels = (seg_copy, rk.rasterize_fwd, rk.rasterize_bwd, row_gather)
-    probe_kernels = (row_scatter, seg_dma, chunk_cumsum)
+    probe_kernels = (row_scatter, seg_dma, chunk_cumsum, bwd_stacked)
+    stacked_probe = probes["probe_bwd_stacked_torch"]
+
+    def path_counts():
+        return {"seg_copy": seg_copy.launches, "rasterize_fwd": rk.rasterize_fwd.launches,
+                "rasterize_bwd": rk.rasterize_bwd.launches, "row_gather": row_gather.launches}
 
     def reset_counts():
         for kern in path_kernels + probe_kernels:
             kern.launches = 0
+
+    def state_difference(a_dir: Path, b_dir: Path) -> tuple[list[str], float]:
+        """The arrays of two checkpoints' `state.npz` that are not bitwise
+        equal, and the worst difference as a share of its array's max."""
+        with np.load(a_dir / "state.npz") as a, np.load(b_dir / "state.npz") as b:
+            check(sorted(a.files) == sorted(b.files), "both checkpoints hold the same arrays")
+            differing, worst = [], 0.0
+            for key in a.files:
+                if not np.array_equal(a[key], b[key]):
+                    differing.append(key)
+                    if a[key].dtype.kind == "f" and a[key].shape == b[key].shape:
+                        scale = max(float(np.abs(a[key]).max()), 1e-30)
+                        worst = max(worst, float(np.abs(a[key] - b[key]).max()) / scale)
+                    else:
+                        worst = float("inf")
+        return differing, worst
+
+    def said(differing: list[str], worst: float) -> str:
+        return ("every array bitwise equal" if not differing else
+                f"NOT bitwise: {len(differing)} arrays differ, the worst by {worst:.3g} of its "
+                f"max ({differing[:6]})")
+
+    def fit_phase() -> dict:
+        """Phase 8: a scene directory written, parsed and decoded (held
+        against the generator's own Gaussians), trained by `cli.fit`, resumed
+        from its middle checkpoint, re-evaluated by `cli.evaluate`, and resumed
+        once more across a refine."""
+        from splat_tpu_torch.cli import evaluate as cli_evaluate
+        from splat_tpu_torch.cli import fit as cli_fit
+        from splat_tpu_torch.data import dataparser, dataset, synthetic
+        from splat_tpu_torch.engine import config as run_config
+        from splat_tpu_torch.ops.ssim import psnr
+
+        work = Path(__file__).resolve().parent / "_runs" / "chip_smoke"
+        shutil.rmtree(work, ignore_errors=True)
+        scene_dir = work / "scene"
+        t0 = time.perf_counter()
+        generated = synthetic.generate_scene(scene_dir, **FIT_SCENE)
+        gen_s = time.perf_counter() - t0
+        n_png = len(list((scene_dir / "images").iterdir()))
+        png_mb = sum(f.stat().st_size for f in (scene_dir / "images").iterdir()) / 2**20
+        print(f"fit: scene of {n_png} frames at {RES}x{RES} ({FIT_SCENE['n_gaussians']} Gaussians, "
+              f"{FIT_SCENE['n_seed_points']} seed points) written in {gen_s:.2f} s "
+              f"({gen_s / n_png:.3f} s per frame; PNGs {png_mb:.1f} MiB)")
+        check(n_png == FIT_FRAMES, "every frame written")
+
+        argv = ["splatfacto", "--data", str(scene_dir), "--output-dir", str(work / "outputs"),
+                "--experiment-name", "chip_smoke", "--timestamp", "run", *FIT_FLAGS]
+        cfg0 = run_config.parse_cli(argv)
+        scene = dataparser.parse_scene(cfg0.data, cfg0.dataparser)
+        n_eval = len(scene.eval_cameras)
+        check(n_eval >= 2 and scene.train_cameras.width == RES
+              and scene.points_xyz.shape[0] == N_GAUSS, "the parsed scene: 2 eval frames, full width")
+        train_imgs, eval_imgs = dataset.load_scene_images(scene)
+        n_img = len(train_imgs) + len(eval_imgs)
+        decode_s = train_imgs.decode_seconds + eval_imgs.decode_seconds
+        t0 = time.perf_counter()
+        by_png = dataset.ImageCache(scene.eval_paths, decoder="png")
+        png_s = (time.perf_counter() - t0) / len(by_png)
+        check(np.abs(by_png.images - eval_imgs.images).max() < 1e-6, "the decoders agree")
+        print(f"fit: {n_img} images decoded by {train_imgs.decoder!r} in {decode_s:.3f} s "
+              f"({decode_s / n_img * 1e3:.1f} ms per image); png.py {png_s * 1e3:.1f} ms per image")
+        # a fresh trainer, as `fit` builds it: the model before training, and
+        # later the one that resumes
+        tc = dataclasses.replace(cfg0.trainer, max_steps=FIT_STEPS, seed=cfg0.seed)
+        resumed = trainer.Trainer(scene, cfg0.model, tc, train_images=train_imgs,
+                                  eval_images=eval_imgs)
+        check(resumed.params.gaussians.alive.shape[0] == LOOP_CAPACITY
+              and int(resumed.params.gaussians.alive.sum()) == N_GAUSS, "the initial model")
+        before = resumed.evaluate()
+
+        # the data path's gate: the generator's own Gaussians, taken through
+        # the parser's transform and scale, rendered by the trainer's eval path
+        # on the parsed eval cameras, against every decoded eval frame. A frame
+        # matches its own camera far better than the initial model does, and no
+        # other camera: wrong pose or velocity conventions, a wrong transform,
+        # scale, intrinsics, split or decode would all show here.
+        truth = generated["gaussians"]
+        rot = torch.tensor(scene.transform[:, :3], dtype=torch.float32, device=dev)
+        shift = torch.tensor(scene.transform[:, 3], dtype=torch.float32, device=dev)
+        check(torch.equal(rot, torch.eye(3, device=dev)), "orientation none: the transform only shifts")
+
+        def padded(x, fill=0.0):
+            out = torch.full((LOOP_CAPACITY, *x.shape[1:]), fill, dtype=torch.float32, device=dev)
+            out[:N_GAUSS] = x.to(dev)
+            return out
+
+        opac = truth["opacities"].clamp(1e-6, 1 - 1e-6)
+        quats = padded(truth["quats"])
+        quats[N_GAUSS:, 0] = 1.0
+        initial = resumed.params
+        resumed.params = initial._replace(
+            gaussians=sf.GaussianParams(
+                means=padded((truth["means"].to(dev) + shift) * scene.scale),
+                scales_log=padded(torch.log(truth["scales"] * scene.scale), -8.0),
+                quats=quats, opacities_logit=padded(torch.log(opac / (1 - opac))),
+                features_dc=padded((truth["colors"] - 0.5) / 0.28209479177387814),
+                features_rest=torch.zeros_like(initial.gaussians.features_rest),
+                alive=padded(torch.ones(N_GAUSS))),
+            background_logit=torch.full((3,), -30.0, device=dev))      # the scene's black
+        frames = torch.as_tensor(eval_imgs.images, device=dev)
+        table = [[float(psnr(render, frames[j])) for j in range(n_eval)]
+                 for render in (resumed.render_eval(i) for i in range(n_eval))]
+        resumed.params = initial
+        own = min(table[i][i] for i in range(n_eval))
+        other = max(table[i][j] for i in range(n_eval) for j in range(n_eval) if i != j)
+        print(f"fit: the generator's Gaussians through the parsed eval cameras against the decoded "
+              f"eval frames: psnr {own:.3f} dB on a camera's own frame (the least), {other:.3f} on "
+              f"another's (the most); the initial model {before['psnr']:.3f}")
+        check(own >= FIT_TRUTH_PSNR_DB and other <= own - 15.0,
+              f"the parsed cameras and decoded frames reproduce the generator's scene "
+              f"(>= {FIT_TRUTH_PSNR_DB} dB, 15 dB over another camera's frame)")
+
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run_dir = cli_fit.main(argv)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit_launches = path_counts()
+        fit_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        for k, n in fit_launches.items():
+            check(n >= FIT_STEPS, f"{k} launched on every step of the fit path")
+        for name in ("config.json", "dataparser_transforms.json", "metrics_train.jsonl",
+                     "metrics.json"):
+            check((run_dir / name).exists(), f"{name} written")
+        metrics = json.loads((run_dir / "metrics.json").read_text())
+        check(set(metrics) == {"experiment_name", "method_name", "checkpoint", "results",
+                               "wall_clock_time_seconds", "compile_time_seconds",
+                               "train_time_seconds"}, "metrics.json keys")
+        check({"psnr", "ssim"} <= set(metrics["results"]), "metrics.json results")
+        check(set(json.loads((run_dir / "dataparser_transforms.json").read_text()))
+              == {"transform", "scale"}, "dataparser_transforms.json keys")
+        saved_cfg = run_config.load_config(run_dir / "config.json")
+        check(saved_cfg.data == str(scene_dir) and saved_cfg.model.blur_samples == 5,
+              "config.json loads")
+        records = [json.loads(line)
+                   for line in (run_dir / "metrics_train.jsonl").read_text().splitlines()]
+        evals = [r for r in records if "eval_psnr" in r]
+        steps = [r for r in records if "loss" in r]
+        check([r["step"] for r in evals] == [100, 200, 300], "evals at 100, 200 and 300")
+        check(all(np.isfinite(v) for r in records for v in r.values()), "every record finite")
+        check(all(r["n_alive"] == N_GAUSS for r in steps),
+              f"all {FIT_STEPS} steps ran on {N_GAUSS} Gaussians")
+        ckpts = sorted((run_dir / "checkpoints").iterdir(), key=lambda d: int(d.name[5:]))
+        check([d.name for d in ckpts] == ["step_100", "step_200", "step_300"], "three checkpoints")
+        ckpt_mb = sum(f.stat().st_size for f in ckpts[-1].iterdir()) / 2**20
+        psnrs = [before["psnr"]] + [r["eval_psnr"] for r in evals]
+        print(f"fit: {FIT_STEPS} steps in {fit_s:.2f} s with 3 evals and 3 checkpoints "
+              f"({FIT_STEPS / metrics['train_time_seconds']:.2f} steps/s over the training loop "
+              f"with its evals and saves, {statistics.median(r['steps_per_s'] for r in steps):.2f} "
+              f"in the logged windows of train steps); "
+              f"launches {fit_launches}; peak memory {fit_peak_gib:.2f} GiB; eval psnr "
+              + " -> ".join(f"{v:.3f}" for v in psnrs) + f" dB; compile "
+              f"{metrics['compile_time_seconds']:.2f} s; checkpoint {ckpt_mb:.1f} MiB")
+        last_meta = json.loads((ckpts[-1] / "meta.json").read_text())
+        print("fit: step time by logged window (p50 ms, alive): "
+              + ", ".join(f"{r['step']}: {r['step_ms_p50']:.2f} ({r['n_alive']})" for r in steps)
+              + f"; at the end capacity {last_meta['capacity']}, max_per_tile "
+              f"{last_meta['max_per_tile']}, tile overflow share {last_meta['tile_overflow_frac']}")
+        check(psnrs[-1] >= psnrs[0] + FIT_PSNR_GAIN_DB
+              and abs(metrics["results"]["psnr"] - psnrs[-1]) <= 1e-6,
+              f"eval PSNR rises by {FIT_PSNR_GAIN_DB} dB over the fit")
+
+        # resume: the fresh trainer takes the middle checkpoint and runs to the end
+        t0 = time.perf_counter()
+        resumed.load_checkpoint(run_dir / "checkpoints" / f"step_{FIT_RESUME_FROM}")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        check(resumed.step == FIT_RESUME_FROM, "the checkpoint's step")
+        resumed.run(FIT_STEPS - FIT_RESUME_FROM)
+        t0 = time.perf_counter()
+        again = resumed.save_checkpoint(work / "resumed" / f"step_{resumed.step}")
+        save_s = time.perf_counter() - t0
+        differing, worst = state_difference(ckpts[-1], again)
+        print(f"fit: resumed from step {FIT_RESUME_FROM} (load {load_s:.3f} s, save {save_s:.3f} s);"
+              f" against the uninterrupted run's last checkpoint: " + said(differing, worst))
+        check(worst <= 1e-6, "the resumed run's state within 1e-6 of the uninterrupted run's")
+        check(resumed.refine_events == [], "no refine inside the fit: the width stayed whole")
+        del resumed
+
+        # the second reader of a checkpoint: cli.evaluate on the run's config.json
+        out = cli_evaluate.main(["--load-config", str(run_dir / "config.json"),
+                                 "--output-path", str(work / "eval.json")])
+        diff = abs(out["results"]["psnr"] - metrics["results"]["psnr"])
+        print(f"fit: cli.evaluate reloaded step {out['checkpoint_step']}: psnr "
+              f"{out['results']['psnr']:.4f} dB against metrics.json's "
+              f"{metrics['results']['psnr']:.4f} (diff {diff:.3g})")
+        check(out["checkpoint_step"] == FIT_STEPS and diff <= 1e-4,
+              "cli.evaluate reproduces metrics.json's PSNR")
+
+        # resume across refines: two trainers carry the fit's last checkpoint
+        # on, on a schedule that refines every REFINE_EVERY steps from here;
+        # one runs through, the other starts from the first one's checkpoint
+        # taken before the first refine
+        span = 2 * REFINE_EVERY
+        mc = dataclasses.replace(cfg0.model, warmup_length=FIT_STEPS, refine_every=REFINE_EVERY)
+        tc = dataclasses.replace(tc, max_steps=FIT_STEPS + span)
+        through = trainer.Trainer(scene, mc, tc, train_images=train_imgs, eval_images=eval_imgs)
+        through.load_checkpoint(ckpts[-1])
+        through.run(REFINE_EVERY // 2)
+        middle = through.save_checkpoint(work / "refine" / "through" / f"step_{through.step}")
+        through.run(span - REFINE_EVERY // 2)
+        end = through.save_checkpoint(work / "refine" / "through" / f"step_{through.step}")
+        joined = trainer.Trainer(scene, mc, tc, train_images=train_imgs, eval_images=eval_imgs)
+        joined.load_checkpoint(middle)
+        joined.run(span - REFINE_EVERY // 2)
+        differing, worst = state_difference(
+            end, joined.save_checkpoint(work / "refine" / "joined" / f"step_{joined.step}"))
+        events = through.refine_events
+        print(f"fit: carried on from step {FIT_STEPS} to {through.step} with refines at "
+              f"{[e['step'] for e in events]} (culled {[e['n_culled'] for e in events]}, split + "
+              f"cloned {[e['n_split'] + e['n_cloned'] for e in events]}), and again from step "
+              f"{FIT_STEPS + REFINE_EVERY // 2}'s checkpoint: " + said(differing, worst)
+              + f"; {int(through.params.gaussians.alive.sum())} alive and eval psnr "
+              f"{through.evaluate()['psnr']:.3f} dB at the end")
+        check([e["step"] for e in events] == [FIT_STEPS + REFINE_EVERY, FIT_STEPS + span]
+              and joined.refine_events == events, "both runs refined twice, alike")
+        check(events[0]["n_culled"] > 0, "the first refine culled")
+        check(worst <= 1e-6, "the run resumed before a refine within 1e-6 of the one that ran through")
+        shutil.rmtree(work, ignore_errors=True)
+        return {"launches": fit_launches}
 
     dev = torch.device("cuda")
     # phase 1: build and environment
@@ -261,7 +523,7 @@ def main() -> int:
     check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmul off")
     t0 = time.perf_counter()
     report = build.build(["seg_copy", "rasterize_fwd", "rasterize_bwd", "row_gather",
-                          "row_scatter", "seg_dma", "chunk_cumsum"])
+                          "row_scatter", "seg_dma", "chunk_cumsum", "bwd_stacked"])
     print(f"build: {time.perf_counter() - t0:.2f} s wall for {sorted(report) or 'cached'}")
     for name, r in report.items():
         info = [ln.strip() for ln in r["log"].splitlines() if "registers" in ln or "spill" in ln]
@@ -354,7 +616,7 @@ def main() -> int:
             got = rk.rasterize_bwd(*args, impl="cuda")
             want, w = rk.rasterize_bwd_plain(*args, count_work=True)
             check(not got[:, :, rk.NPARAM - 1:].any(), f"rasterize_bwd {label}: zero columns")
-            shares = bwd_errors(got, want)
+            shares = stacked_probe.shares(got, want)
             err = (got - want).abs().max().item()
             errs["rasterize_bwd"] = max(errs.get("rasterize_bwd", 0.0), err)
             print(f"rasterize_bwd vs plain, {label}: max|err| {err:.3g}; as a share of "
@@ -369,7 +631,20 @@ def main() -> int:
                                        tiles_x, RES)
         check_bwd("tile 16, S=1", blocks, lists, None, cfg.tile_size, tiles_x, RES)
         check_bwd("tile 16x8, S=5", blocks_r, lists_r, eps_r, (16, 8), r_args[4], RES)
-        del lists_r, sp_r, blocks_r, got, want
+        # bwd_stacked on the backward compositor's inputs (4096 tiles, K = 256,
+        # S = 5: 1280 stacked rows on 1024 threads), held to its bounds against
+        # its own plain version and against the rasterize_bwd kernel
+        stacked_plain = bwd_stacked_plain(*bwd_args)
+        stacked_errs = stacked_probe.check({"args": bwd_args}, plain=stacked_plain)
+        errs["bwd_stacked"] = stacked_errs["max_abs_err"]
+        for label, sh in (("plain", stacked_errs["plain_shares"]),
+                          ("rasterize_bwd kernel", stacked_errs["shares"])):
+            print(f"bwd_stacked vs {label}, tile 16, S=5: as a share of the scale's max per "
+                  f"column {sh['column']:.3g}, per column and 64-slot batch {sh['batch']:.3g}, "
+                  f"per row {sh['row']:.3g}")
+        print(f"bwd_stacked: max|err| vs plain {errs['bwd_stacked']:.3g}; tps "
+              f"{list(stacked_errs['relerr'])} bitwise equal, two launches bitwise equal")
+        del lists_r, sp_r, blocks_r, got, want, stacked_plain
 
         # row_gather at the backward's shape: the slot gradients (T * K rows
         # and the zero row of dropped entries) at the binning's entry slots
@@ -388,6 +663,7 @@ def main() -> int:
         errs["seg_dma"] = 0.0
         # the probe kernels at their probes' shapes
         probe_inputs = {name: mod.make_inputs(dev) for name, mod in probes.items()}
+        stacked_probe.check(probe_inputs["probe_bwd_stacked_torch"])    # at the probe's scene
         gather_errs = probes["probe_kernel_gather_torch"].check(
             probe_inputs["probe_kernel_gather_torch"])
         errs["row_scatter"] = gather_errs["row_scatter"]
@@ -409,9 +685,8 @@ def main() -> int:
                   for i in range(N_CAMERAS)]
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t0) * 1e3 / N_CAMERAS
-        render_launches = {"seg_copy": seg_copy.launches,
-                           "rasterize_fwd": rk.rasterize_fwd.launches,
-                           "row_gather": row_gather.launches}
+        by_path = {"render": path_counts()}
+        render_launches = {k: v for k, v in by_path["render"].items() if k != "rasterize_bwd"}
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         print(f"render path: {N_CAMERAS} cameras, launches {render_launches}, "
               f"first pass {first_ms:.1f} ms/camera, peak memory {peak_gib:.2f} GiB")
@@ -503,9 +778,7 @@ def main() -> int:
         losses.append(loss)
         n_visible.append(aux["n_visible"])
     torch.cuda.synchronize()
-    step_launches = {"seg_copy": seg_copy.launches, "rasterize_fwd": rk.rasterize_fwd.launches,
-                     "rasterize_bwd": rk.rasterize_bwd.launches,
-                     "row_gather": row_gather.launches}
+    step_launches = by_path["train"] = path_counts()
     losses = torch.stack(losses).tolist()
     print(f"train: {TRAIN_STEPS} steps from step {TRAIN_START}, launches {step_launches}; losses "
           + " ".join(f"{v:.5f}" for v in losses)
@@ -577,8 +850,7 @@ def main() -> int:
     history = loop.run(LOOP_STEPS)
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t0
-    launches = {"seg_copy": seg_copy.launches, "rasterize_fwd": rk.rasterize_fwd.launches,
-                "rasterize_bwd": rk.rasterize_bwd.launches, "row_gather": row_gather.launches}
+    launches = by_path["loop"] = path_counts()
     loop_peak_gib = torch.cuda.max_memory_allocated() / 2**30
     after = loop.evaluate()
     events = loop.refine_events
@@ -679,9 +951,13 @@ def main() -> int:
         dma_res = probes["probe_seg_dma_torch"].bench(
             probe_inputs["probe_seg_dma_torch"], KERNEL_RUNS, KERNEL_REPS)
         cumsum_res = probes["probe_cumsum_torch"].bench(probe_inputs["probe_cumsum_torch"], 5, 5)
+        stacked_res = stacked_probe.bench(probe_inputs["probe_bwd_stacked_torch"], 5, 5)
         torch.cuda.synchronize()
     probe_launches = {"row_scatter": row_scatter.launches, "seg_dma": seg_dma.launches,
-                      "chunk_cumsum": chunk_cumsum.launches}
+                      "chunk_cumsum": chunk_cumsum.launches, "bwd_stacked": bwd_stacked.launches}
+    print("bwd_stacked, probe scene: " + ", ".join(
+        f"tps={t} {ms:.4f}" for t, ms in stacked_res["tps"].items())
+        + f" ms; rasterize_bwd {stacked_res['rasterize_bwd_ms']:.4f} ms")
     print(f"probes: launches {probe_launches}")
     for k, n in probe_launches.items():
         check(n > 0, f"{k} launched by its probe")
@@ -795,6 +1071,26 @@ def main() -> int:
               f"{bw['live_row_pixels']} live (row, pixel) steps, {bw['live_rows']} live rows; "
               f"{bw['hit_pairs']} exp at {sfu_peak / 1e12:.2f} T/s; {bwd_bytes} B)")
 
+        # bwd_stacked on the same inputs: the fastest tps of the probe's loop.
+        # It computes rasterize_bwd's function, so its least time is
+        # rasterize_bwd's. Its mapping does more than that count: a thread
+        # forms the sigma coefficients for its own rows, once per (row, pixel)
+        # and group of blockDim / npix samples.
+        best_tps = stacked_res["best"]
+        stacked_ms = time_cuda(lambda: bwd_stacked(*bwd_args, tps=best_tps, impl="cuda"),
+                               KERNEL_RUNS, KERNEL_REPS)
+        stacked_plain_ms = time_cuda(lambda: bwd_stacked_plain(*bwd_args), 2)
+        coefficient_passes = min(n_s, 1024 // npix)
+        stacked_extra_flops = bw["live_row_pixels"] * FLOPS_PER_ROW_PIXEL * (coefficient_passes - 1)
+        print(f"bwd_stacked: {stacked_ms:.4f} ms at tps={best_tps} (plain {stacked_plain_ms:.4f}; "
+              f"bound {bwd_times[bwd_bound_by]:.4f} ms by {bwd_bound_by}, rasterize_bwd's: the "
+              f"same function of the same inputs; its mapping forms the sigma coefficients "
+              f"{coefficient_passes} times per pixel, {stacked_extra_flops} flop beyond that count, "
+              f"{stacked_extra_flops / fp32_peak * 1e3:.4f} ms at the peak rate)")
+        del bwd_args, fwd_args, blocks, sp, table, d_slots
+
+    fit = fit_phase()
+
     kernels = [
         {"name": "seg_copy", "route": "cuda", "source": "splat_tpu_torch/ops/cuda/csrc/seg_copy.cu",
          "replaces": "splat_tpu/ops/pallas/seg_copy.py:75", "launches": launches["seg_copy"],
@@ -803,12 +1099,16 @@ def main() -> int:
         {"name": "rasterize_fwd", "route": "cuda",
          "source": "splat_tpu_torch/ops/cuda/csrc/rasterize_fwd.cu",
          "replaces": "splat_tpu/ops/pallas/rasterize_kernels_gmajor.py:538",
+         # the same function in the TPU's other memory layouts; here one layout, (T, K, 16)
+         "covers": ["splat_tpu/ops/pallas/rasterize_kernels.py:586",
+                    "splat_tpu/ops/pallas/rasterize_kernels_gmajor.py:428"],
          "launches": launches["rasterize_fwd"], "max_abs_err": errs["rasterize_fwd"],
          "ms": fwd_ms, "plain_ms": fwd_plain_ms, "bound_ms": fwd_times[fwd_bound_by],
          "bound_by": fwd_bound_by, "library_ms": None},
         {"name": "rasterize_bwd", "route": "cuda",
          "source": "splat_tpu_torch/ops/cuda/csrc/rasterize_bwd.cu",
          "replaces": "splat_tpu/ops/pallas/rasterize_kernels.py:636",
+         "covers": ["splat_tpu/ops/pallas/rasterize_kernels_gmajor.py:482"],
          "launches": launches["rasterize_bwd"], "max_abs_err": errs["rasterize_bwd"],
          "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_times[bwd_bound_by],
          "bound_by": bwd_bound_by, "library_ms": None},
@@ -837,7 +1137,20 @@ def main() -> int:
          "max_abs_err": errs["chunk_cumsum"], "ms": cumsum_res["ms"],
          "plain_ms": cumsum_res["plain_ms"], "bound_ms": cumsum_res["bytes"] / hbm * 1e3,
          "bound_by": "bytes", "library_ms": cumsum_res["library_ms"]},
+        # at the backward compositor's inputs; no single PyTorch call computes it
+        {"name": "bwd_stacked", "route": "cuda",
+         "source": "splat_tpu_torch/ops/cuda/csrc/bwd_stacked.cu",
+         "replaces": "scripts_dev/probe_bwd_stacked.py:198",
+         "launches": probe_launches["bwd_stacked"], "max_abs_err": errs["bwd_stacked"],
+         "ms": stacked_ms, "plain_ms": stacked_plain_ms,
+         "bound_ms": bwd_times[bwd_bound_by], "bound_by": bwd_bound_by,
+         "library_ms": None, "coefficient_passes": coefficient_passes},
     ]
+    by_path["fit"] = fit["launches"]
+    for kern in kernels:
+        if kern["name"] in launches:
+            kern["launches_by_path"] = {path: counts[kern["name"]]
+                                        for path, counts in by_path.items()}
     print(json.dumps({"kernels": kernels}))
     print(card)  # as `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` gives it
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

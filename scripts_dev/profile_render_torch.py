@@ -3,11 +3,13 @@
 over the port's paths (chip_smoke.py's scene, model and config), one CUDA
 device.
 
-    python3 scripts_dev/profile_render_torch.py [--train] [--out outputs/render_trace.json]
+    python3 scripts_dev/profile_render_torch.py [--train | --fit] [--out outputs/render_trace.json]
 
 Without --train it profiles a render of the 4 cameras; with --train, 4
 `train_step`s (one per camera, from step 3000, after 8 warm-up steps) on
-chip_smoke.py's targets. Prints the wall time per camera (or step) of the
+chip_smoke.py's targets; with --fit, 4 steps of `Trainer.run` (after 12
+warm-up steps) on chip_smoke.py's scene directory (written to a temporary
+directory, parsed and configured by its `cli.fit` flags). Prints the wall time per camera (or step) of the
 profiled window, the device's busy share (the sum of every kernel's device
 time over wall time; everything runs on one stream, so kernels do not
 overlap), the kernels with the most device time and the ops with the most
@@ -16,7 +18,9 @@ host time, and writes a Chrome trace.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -31,6 +35,8 @@ def main() -> int:
     ap.add_argument("--out", default="outputs/render_trace.json")
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--train", action="store_true", help="profile train steps, not renders")
+    ap.add_argument("--fit", action="store_true",
+                    help="profile Trainer.run steps on the scene directory of chip_smoke.py")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_render_torch: needs a CUDA device", file=sys.stderr)
@@ -53,7 +59,21 @@ def main() -> int:
     bg = sf.background_color(params, cfg)
     n = chip_smoke.N_CAMERAS
 
-    if args.train:
+    if args.fit:
+        from splat_tpu_torch.data import dataparser, synthetic
+        from splat_tpu_torch.engine import config as run_config
+
+        scene_dir = Path(tempfile.mkdtemp()) / "scene"
+        synthetic.generate_scene(scene_dir, **dict(chip_smoke.FIT_SCENE, n_frames=9))
+        run = run_config.parse_cli(["--data", str(scene_dir), *chip_smoke.FIT_FLAGS])
+        fit_trainer = trainer.Trainer(
+            dataparser.parse_scene(run.data, run.dataparser), run.model,
+            dataclasses.replace(run.trainer, max_steps=run.max_num_iterations, seed=run.seed))
+        fit_trainer.run(8)      # with the two passes below: 12 warm-up steps
+
+        def run_all():
+            fit_trainer.run(n)
+    elif args.train:
         target = params_from_numpy(chip_smoke.target_tree(), device=dev)
         with torch.no_grad():
             gts = [sf.gamma_encode(sf.render_camera(target, cams[i], cfg, cfg.sh_degree,
@@ -95,7 +115,7 @@ def main() -> int:
     device_us = sum(e.self_device_time_total for e in kernels)
     host_ops = sum(e.count for e in avgs if e.key.startswith("aten::"))
     print(f"card: {nvidia_smi('name,power.limit')}")
-    unit = "step" if args.train else "camera"
+    unit = "step" if args.train or args.fit else "camera"
     print(f"profiled: {n} {unit}s, wall {wall_us / n / 1e3:.3f} ms/{unit}, device busy "
           f"{device_us / n / 1e3:.3f} ms/{unit} = {device_us / wall_us:.1%} of wall; "
           f"{host_ops / n:.0f} aten op calls/{unit}, "

@@ -22,12 +22,22 @@ probes the unclamped per-tile populations to grow `max_per_tile` or
 `max_total_entries`, and resets the opacities on schedule. The host reads
 device values only at refine and log boundaries. Random draws (camera order,
 split offsets, the random background) come from `torch.Generator`s seeded
-with `TrainerConfig.seed`. Checkpoints and the multi-device mesh are not
-ported yet.
+with `TrainerConfig.seed`.
+
+A checkpoint is a directory `step_N/` holding `state.npz` (numpy arrays under
+flat dotted keys, no pickled objects) and `meta.json`: every model leaf, the
+step, Adam's `exp_avg`, `exp_avg_sq` and `step` per leaf and the decays' count,
+the eval optimizer's state, the strategy accumulators, and the sampling stream
+(the three generators' states, the epoch order, the last reset step, the
+tile-overflow streak), so save -> fresh trainer -> load -> run continues the
+trajectory of an uninterrupted run bit for bit. The JAX package's Orbax trees
+are not read here (`models.convert.trainer_state_from_numpy` takes one as
+numpy arrays). The multi-device mesh is not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
 from pathlib import Path
 from typing import Callable
@@ -37,10 +47,11 @@ import torch
 
 from ..cameras.cameras import Cameras
 from ..data.dataparser import ParsedScene
-from ..data.dataset import ImageCache
+from ..data.dataset import ImageCache, load_scene_images
 from ..device import resolve_device
 from ..models import splatfacto as sf
 from ..models import strategy as st
+from ..models.convert import named_leaves
 from ..ops.ssim import psnr as psnr_fn
 from ..ops.ssim import ssim as ssim_fn
 from ..utils.profiling import StepTimer
@@ -141,6 +152,14 @@ class Optimizer:
     def step(self) -> None:
         self.adam.step()
         self.schedule.step()    # the next update's learning rates
+
+    def set_count(self, count: int) -> None:
+        """Resume the exponential decays at update count `count`."""
+        sched = self.schedule
+        sched.last_epoch = int(count)
+        for group, base, decay in zip(self.adam.param_groups, sched.base_lrs, sched.lr_lambdas):
+            group["lr"] = base * decay(int(count))
+        sched._last_lr = [group["lr"] for group in self.adam.param_groups]
 
     def gaussian_leaves(self):
         for group in self.adam.param_groups:
@@ -251,8 +270,9 @@ class Trainer:
     """Train one scene on one device (port of the JAX package's `Trainer`).
 
     scene: the parsed cameras and seed cloud; train_images, eval_images: the
-    two image stacks, in the order of the scene's cameras. The model and every
-    image live on `device` (CUDA unless "cpu" is asked for)."""
+    two image stacks, in the order of the scene's cameras (None: decoded from
+    the scene's image paths). The model and every image live on `device`
+    (CUDA unless "cpu" is asked for)."""
 
     scene: ParsedScene
     model_config: sf.SplatfactoConfig
@@ -263,7 +283,7 @@ class Trainer:
 
     def __post_init__(self):
         if self.train_images is None or self.eval_images is None:
-            raise ValueError("Trainer needs the train and eval image stacks (ImageCache)")
+            self.train_images, self.eval_images = load_scene_images(self.scene)
         self.device = dev = resolve_device(self.device)
         cfg, tc = self.model_config, self.trainer_config
         self.params = sf.init_model(
@@ -525,12 +545,165 @@ class Trainer:
         return {k: float(np.mean(v)) for k, v in metrics.items() if v}
 
     # ------------------------------------------------------------ checkpoint
-    def save_checkpoint(self, path: str | Path):
-        raise NotImplementedError(
-            "checkpoints are not ported yet: they come with the data slice (the JAX "
-            "package's are Orbax trees, which need JAX to read)")
+    def _group_keys(self) -> dict[str, list[str]]:
+        """The leaf names of every optional state group of this trainer: what
+        a checkpoint's groups are compared with before they are applied."""
+        p = self.params
+        groups = {g: sorted(getattr(p, g)) for g in ("camera_opt", "velocity_opt",
+                                                     "eval_camera_opt", "eval_velocity_opt")}
+        names = {id(leaf): name for name, leaf in named_leaves(p).items()}
+        groups["opt_state"] = sorted(names[id(leaf)] for leaf in self.optimizer.params)
+        if self.eval_optimizer is not None:
+            groups["eval_opt_state"] = sorted(names[id(leaf)]
+                                              for leaf in self.eval_optimizer.leaves)
+        groups["strat_state"] = ["grad_accum", "grad_count"]
+        groups["sampling"] = ["background", "cam_order", "sampler", "split"]
+        return groups
 
-    def load_checkpoint(self, path: str | Path):
-        raise NotImplementedError(
-            "checkpoints are not ported yet: they come with the data slice (the JAX "
-            "package's are Orbax trees, which need JAX to read)")
+    def save_checkpoint(self, path: str | Path) -> Path:
+        """Write the full training state to the directory `path`: the model,
+        both optimizers (Adam's moments and step per leaf, the decays' count),
+        the strategy accumulators and the sampling stream, as `state.npz`
+        (flat dotted keys, plain arrays) and `meta.json`."""
+        path = Path(path)
+        path.mkdir(parents=True, exist_ok=True)
+        leaves = named_leaves(self.params)
+        names = {id(leaf): name for name, leaf in leaves.items()}
+        arrays = {name: leaf.detach().cpu().numpy() for name, leaf in leaves.items()}
+
+        def adam_arrays(prefix, adam, params):
+            for leaf in params:
+                state = adam.state.get(leaf)
+                if state:
+                    for key in ("exp_avg", "exp_avg_sq", "step"):
+                        arrays[f"{prefix}.{names[id(leaf)]}.{key}"] = (
+                            state[key].detach().cpu().numpy())
+
+        adam_arrays("opt_state", self.optimizer.adam, self.optimizer.params)
+        if self.eval_optimizer is not None:
+            adam_arrays("eval_opt_state", self.eval_optimizer.adam, self.eval_optimizer.leaves)
+        arrays["strat_state.grad_accum"] = self.strat_state.grad_accum.cpu().numpy()
+        arrays["strat_state.grad_count"] = self.strat_state.grad_count.cpu().numpy()
+        arrays["sampling.sampler"] = self._sampler.get_state().numpy()
+        arrays["sampling.background"] = self._bg_generator.get_state().cpu().numpy()
+        arrays["sampling.split"] = self.strat_state.generator.get_state().cpu().numpy()
+        n_train = len(self.train_cams)
+        arrays["sampling.cam_order"] = np.asarray(
+            self._order if self._order is not None else np.full(n_train, -1), np.int32)
+        cfg = self.model_config
+        meta = {
+            "format": 1, "step": self.step, "capacity": int(self.params.gaussians.alive.shape[0]),
+            "groups": self._group_keys(),
+            "schedule_count": int(self.optimizer.schedule.last_epoch),
+            "last_reset_step": self._last_reset_step if self._last_reset_step > -(10**9) else -1,
+            "overflow_streak": self._overflow_streak,
+            "tile_overflow_frac": self._tile_overflow_frac,
+            "entry_stream_pressure": self._entry_stream_pressure,
+            "max_per_tile": cfg.max_per_tile, "max_total_entries": cfg.max_total_entries,
+        }
+        np.savez(path / "state.npz", **arrays)
+        (path / "meta.json").write_text(json.dumps(meta, indent=2))
+        return path
+
+    def _resize_gaussians(self, capacity: int) -> None:
+        """Bring the model to a checkpoint's capacity (either direction) with
+        a fresh optimizer and strategy state, as the JAX trainer re-inits
+        them; the checkpoint's own state is applied afterwards."""
+        g = sf.GaussianParams(*(t.detach() for t in self.params.gaussians))
+        if capacity > g.alive.shape[0]:
+            g = st.grow_capacity(g, capacity)
+        else:
+            g = sf.GaussianParams(*(leaf[:capacity].clone() for leaf in g))
+        self.params = self.params._replace(gaussians=g)
+        self.optimizer = Optimizer(self.params, self.trainer_config)
+        self.strat_state = st.init_strategy_state(capacity, self.trainer_config.seed,
+                                                  device=self.device)
+
+    @torch.no_grad()
+    def load_checkpoint(self, path: str | Path) -> None:
+        """Restore a checkpoint written by `save_checkpoint`. The model adapts
+        to the stored capacity. An optional group (camera or velocity
+        corrections, either optimizer's state, the strategy state, the
+        sampling stream) whose leaf names differ from this trainer's
+        configuration is skipped with one message and the current state kept;
+        the model itself is never skipped. A checkpoint without a sampling
+        group re-derives the epoch cursor and the last reset step from the
+        schedule."""
+        path = Path(path)
+        meta = json.loads((path / "meta.json").read_text())
+        if meta.get("format", 1) != 1:
+            raise ValueError(f"{path}: checkpoint format {meta['format']}, this package reads 1")
+        with np.load(path / "state.npz", allow_pickle=False) as npz:
+            arrays = {k: npz[k] for k in npz.files}
+        stored_cap = int(arrays["gaussians.means"].shape[0])
+        if stored_cap != self.params.gaussians.alive.shape[0]:
+            self._resize_gaussians(stored_cap)
+        mine, stored = self._group_keys(), meta.get("groups", {})
+        discarded = sorted(k for k in set(mine) | set(stored)
+                           if k in stored and sorted(stored[k]) != mine.get(k))
+        if discarded:
+            print("load_checkpoint: feature-set mismatch — keeping current "
+                  f"state for group(s) {discarded} (stored "
+                  "structure differs from this trainer's config)", flush=True)
+        keep = {k for k in stored if k not in discarded}
+        leaves = named_leaves(self.params)
+        for name, leaf in leaves.items():
+            group = name.split(".")[0]
+            if group not in ("gaussians", "background_logit") and group not in keep:
+                continue
+            value = torch.as_tensor(arrays[name])
+            if value.shape != leaf.shape:
+                raise ValueError(f"{path}: {name} is {tuple(value.shape)}, this trainer's is "
+                                 f"{tuple(leaf.shape)}")
+            leaf.copy_(value)
+        self.step = int(meta["step"])
+
+        def load_adam(prefix, adam, params):
+            names = {id(leaf): name for name, leaf in leaves.items()}
+            for leaf in params:
+                key = f"{prefix}.{names[id(leaf)]}"
+                if f"{key}.step" not in arrays:
+                    adam.state.pop(leaf, None)
+                    continue
+                adam.state[leaf] = {
+                    "step": torch.tensor(arrays[f"{key}.step"]),
+                    "exp_avg": torch.tensor(arrays[f"{key}.exp_avg"], device=leaf.device),
+                    "exp_avg_sq": torch.tensor(arrays[f"{key}.exp_avg_sq"], device=leaf.device)}
+
+        if "opt_state" in keep:
+            load_adam("opt_state", self.optimizer.adam, self.optimizer.params)
+            self.optimizer.set_count(int(meta["schedule_count"]))
+        if "eval_opt_state" in keep and self.eval_optimizer is not None:
+            load_adam("eval_opt_state", self.eval_optimizer.adam, self.eval_optimizer.leaves)
+        if "strat_state" in keep:
+            self.strat_state = self.strat_state._replace(
+                grad_accum=torch.tensor(arrays["strat_state.grad_accum"], device=self.device),
+                grad_count=torch.tensor(arrays["strat_state.grad_count"], device=self.device))
+        if "sampling" in keep:
+            self._sampler.set_state(torch.tensor(arrays["sampling.sampler"]))
+            self._bg_generator.set_state(torch.tensor(arrays["sampling.background"]))
+            self.strat_state.generator.set_state(torch.tensor(arrays["sampling.split"]))
+            order = arrays["sampling.cam_order"]
+            self._order = None if (order < 0).any() else [int(i) for i in order]
+            lrs = int(meta["last_reset_step"])
+            self._last_reset_step = lrs if lrs >= 0 else -(10**9)
+            self._overflow_streak = int(meta.get("overflow_streak", 0))
+            self._tile_overflow_frac = meta.get("tile_overflow_frac")
+            self._entry_stream_pressure = meta.get("entry_stream_pressure")
+        else:
+            # params-only checkpoint: the epoch order is drawn anew at the next
+            # step, and the most recent opacity reset follows from the schedule
+            # so the post-reset refine pause is kept
+            self._order = None
+            cfg = self.model_config
+            interval = cfg.refine_every * max(cfg.reset_alpha_every, 1)
+            if cfg.reset_alpha_every > 0 and self.step >= interval:
+                self._last_reset_step = (self.step // interval) * interval
+        # the adaptive capacities the run had grown to (the run's config.json
+        # tracks them too; a checkpoint loaded on its own must not re-drop
+        # the deepest tile entries)
+        cfg = self.model_config
+        self.model_config = dataclasses.replace(
+            cfg, max_per_tile=max(cfg.max_per_tile, int(meta.get("max_per_tile", 0))),
+            max_total_entries=max(cfg.max_total_entries, int(meta.get("max_total_entries", 0))))
+        self._pyramid.clear()

@@ -8,7 +8,10 @@ and `cameras_from_numpy` a dict of the JAX `Cameras` fields.
 `scene_from_numpy` builds a `ParsedScene` and its two image stacks,
 `strategy_state_from_numpy` the densification accumulators, and
 `optimizer_state_from_numpy` loads Adam's moments and update count (optax's
-`mu`, `nu` and `count`, by leaf name) into an `Optimizer`. None needs JAX.
+`mu`, `nu` and `count`, by leaf name) into an `Optimizer`.
+`trainer_state_from_numpy` loads the state dict of a JAX checkpoint into a
+`Trainer`, so a model trained by the JAX package is evaluated or continued
+here. None needs JAX.
 """
 from __future__ import annotations
 
@@ -71,8 +74,8 @@ def scene_from_numpy(tree: Mapping[str, Any], device=None
     "points_xyz", "points_rgb": the seed cloud or None, and optionally
     "train_paths", "eval_paths", "transform", "scale", "metadata"} ->
     (ParsedScene, train ImageCache, eval ImageCache)."""
-    train = ImageCache(tree["train_images"], tree.get("train_paths"))
-    evals = ImageCache(tree["eval_images"], tree.get("eval_paths"))
+    train = ImageCache.from_arrays(tree["train_images"], tree.get("train_paths"))
+    evals = ImageCache.from_arrays(tree["eval_images"], tree.get("eval_paths"))
     xyz, rgb = tree.get("points_xyz"), tree.get("points_rgb")
     scene = ParsedScene(
         train_cameras=cameras_from_numpy(tree["train_cameras"], device),
@@ -111,8 +114,61 @@ def optimizer_state_from_numpy(optimizer, params: ModelParams, mu: Mapping[str, 
             "exp_avg": _f32(mu[name], leaf.device),
             "exp_avg_sq": _f32(nu[name], leaf.device),
         }
-    sched = optimizer.schedule
-    sched.last_epoch = int(count)
-    for group, base, decay in zip(adam.param_groups, sched.base_lrs, sched.lr_lambdas):
-        group["lr"] = base * decay(int(count))
-    sched._last_lr = [group["lr"] for group in adam.param_groups]
+    optimizer.set_count(int(count))
+
+
+@torch.no_grad()
+def trainer_state_from_numpy(trainer, tree: Mapping[str, Any]) -> None:
+    """Load the state dict of a JAX `Trainer.save_checkpoint` (as numpy
+    arrays) into `trainer`, an `engine.trainer.Trainer` built on the same
+    scene and configuration.
+
+    tree: {"gaussians": {...}, "background_logit", "camera_opt",
+    "velocity_opt", "eval_camera_opt", "eval_velocity_opt", "step"} and
+    optionally "opt_state" and "eval_opt_state", each flattened to {"mu":
+    {leaf name: array}, "nu": {...}, "count": int} by `named_leaves` name (as
+    `optimizer_state_from_numpy` takes them), "strat_state": {"grad_accum",
+    "grad_count"} and "sampling": {"cam_order", "last_reset_step"}. The model
+    adapts to the stored capacity. JAX's PRNG keys (the sampling key, the
+    strategy key) have no counterpart: this trainer's generators stay as they
+    were seeded from `TrainerConfig.seed`, so a continued run draws its own
+    camera order and split offsets from there."""
+    stored_cap = int(np.asarray(tree["gaussians"]["means"]).shape[0])
+    if stored_cap != trainer.params.gaussians.alive.shape[0]:
+        trainer._resize_gaussians(stored_cap)
+    source = params_from_numpy(tree, device="cpu")
+    mine = named_leaves(trainer.params)
+    for name, value in named_leaves(source).items():
+        if name not in mine:
+            raise ValueError(f"the checkpoint holds {name}, which this trainer's "
+                             "configuration does not")
+        if mine[name].shape != value.shape:
+            raise ValueError(f"{name} is {tuple(value.shape)} in the checkpoint, "
+                             f"{tuple(mine[name].shape)} here")
+        mine[name].copy_(value)
+    trainer.step = int(tree["step"])
+    if tree.get("opt_state") is not None:
+        o = tree["opt_state"]
+        optimizer_state_from_numpy(trainer.optimizer, trainer.params, o["mu"], o["nu"],
+                                   int(o["count"]))
+    if tree.get("eval_opt_state") is not None and trainer.eval_optimizer is not None:
+        o = tree["eval_opt_state"]
+        for name, leaf in mine.items():
+            if name in o["mu"]:
+                trainer.eval_optimizer.adam.state[leaf] = {
+                    "step": torch.tensor(float(o["count"]), dtype=torch.float32),
+                    "exp_avg": _f32(o["mu"][name], leaf.device),
+                    "exp_avg_sq": _f32(o["nu"][name], leaf.device)}
+    if tree.get("strat_state") is not None:
+        s = tree["strat_state"]
+        trainer.strat_state = trainer.strat_state._replace(
+            grad_accum=_f32(s["grad_accum"], trainer.device),
+            grad_count=torch.tensor(np.asarray(s["grad_count"], dtype=np.int32),
+                                    device=trainer.device))
+    trainer._order = None
+    sampling = tree.get("sampling") or {}
+    if "cam_order" in sampling and not (np.asarray(sampling["cam_order"]) < 0).any():
+        trainer._order = [int(i) for i in np.asarray(sampling["cam_order"])]
+    lrs = int(sampling.get("last_reset_step", -1))
+    trainer._last_reset_step = lrs if lrs >= 0 else -(10**9)
+    trainer._pyramid.clear()

@@ -29,6 +29,11 @@ NVCC_FLAGS = (
 )
 
 
+# wall seconds this process has spent compiling kernels (what a run reports
+# as its compile time)
+build_seconds = 0.0
+
+
 class BuildError(RuntimeError):
     pass
 
@@ -77,6 +82,8 @@ def build(names: list[str]) -> dict[str, dict]:
             continue
         os.replace(tmp, out)
         report[name] = {"seconds": time.perf_counter() - t0, "log": log}
+    global build_seconds
+    build_seconds += time.perf_counter() - t0
     if failed:
         raise BuildError("nvcc failed:\n" + "\n".join(failed))
     return report

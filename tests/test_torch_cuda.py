@@ -15,7 +15,11 @@ plain version: |kernel - plain| <= 1e-5 * max|plain| per column within each
 64-slot batch (the deeper batches' gradients are ~1e-3 of the first's, so a
 column-wide bound would not see them), and <= 1e-3 of each (tile, slot)
 row's max over its columns (where a row's pixel sum cancels, the two
-summation orders differ by a few 1e-5 of the row's max). Gradients of the
+summation orders differ by a few 1e-5 of the row's max). bwd_stacked is held
+to the same bounds against its own plain version (the stacked formulation,
+moment products in float64) and against the rasterize_bwd kernel (the same
+terms summed over other threads), is bitwise repeatable and does not depend
+on tps. Gradients of the
 kernel route against the
 plain route (impl="torch"):
 each leaf within 1e-3 * max|leaf gradient|; and the kernel route's
@@ -41,6 +45,7 @@ from splat_tpu_torch.models.convert import cameras_from_numpy, params_from_numpy
 from splat_tpu_torch.ops import cuda as kcuda
 from splat_tpu_torch.ops import rasterize, tiling
 from splat_tpu_torch.ops.cuda import rasterize_kernels as rk
+from splat_tpu_torch.ops.cuda.bwd_stacked import bwd_stacked
 from splat_tpu_torch.ops.cuda.chunk_cumsum import chunk_cumsum, chunk_cumsum_plain
 from splat_tpu_torch.ops.cuda.row_gather import row_gather, row_gather_plain
 from splat_tpu_torch.ops.cuda.row_scatter import row_scatter, scatter_plan
@@ -162,6 +167,44 @@ def test_bwd_kernel_matches_plain_on_card(cuda_device, tile_size, n_samples, row
         assert (e <= 1e-5 * m).all(), (j, e, m)
     e, m = err.amax(dim=2), ref.amax(dim=2)        # per (tile, slot) row
     assert (e <= 1e-3 * m).all(), (e / m).nan_to_num().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_size,n_samples,row_off,tps",
+                         [(16, 5, 0.0, 1), (16, 5, 0.0, 4), (16, 1, 0.0, 2), ((16, 8), 5, 8.0, 8),
+                          (8, 16, 0.0, 1), (16, 16, 0.0, 2), (16, 3, 0.0, 5)])
+def test_bwd_stacked_matches_plain_and_rasterize_bwd_on_card(cuda_device, tile_size, n_samples,
+                                                            row_off, tps):
+    """S * npix from 256 to 4096 stacked rows: one row per thread, strided
+    rows (1280 and 4096 on 1024 threads), and a block narrower than 1024."""
+    lists, sp, motion = _inputs(cuda_device, tile_size)
+    blocks = seg_copy(sp, lists.starts, K, impl="cuda")
+    eps = torch.linspace(-0.03, 0.03, n_samples, device=cuda_device)
+    tiles_x = tiling.num_tiles(IMG_W, IMG_H, tile_size)[0]
+    full_h = IMG_H + 2 * int(row_off)
+    scalars = rk.scalar_vec(motion.rs_time, row_off, eps, cuda_device)
+    fwd = rk.rasterize_fwd(blocks, lists.counts, motion.rs_time, tile_size, tiles_x, full_h,
+                           row_offset=row_off, eps=eps, impl="cuda")
+    g_out = torch.randn(fwd.shape, generator=_seeded(cuda_device, 0), device=cuda_device)
+    args = (blocks, lists.counts, scalars, fwd, g_out, tile_size, tiles_x, full_h)
+    before = bwd_stacked.launches
+    got = bwd_stacked(*args, tps=tps, impl="cuda")
+    torch.cuda.synchronize()
+    assert bwd_stacked.launches == before + 1
+    assert torch.equal(got, bwd_stacked(*args, tps=tps, impl="cuda")), "bitwise repeatable"
+    assert torch.equal(got, bwd_stacked(*args, tps=1, impl="cuda")), "tps does not change sums"
+    assert not got[:, :, rk.NPARAM - 1:].any()
+    for want in (bwd_stacked(*args, impl="torch"), rk.rasterize_bwd(*args, impl="cuda")):
+        assert (want[:, :, :rk.NPARAM - 1].abs().amax(dim=(0, 1)) > 0).all()
+        err = (got - want)[:, :, :rk.NPARAM - 1].abs()
+        ref = want[:, :, :rk.NPARAM - 1].abs()
+        for j in range(0, K, 64):      # per column within each 64-slot batch
+            e, m = err[:, j:j + 64].amax(dim=(0, 1)), ref[:, j:j + 64].amax(dim=(0, 1))
+            assert (e <= 1e-5 * m).all(), (j, e, m)
+        e, m = err.amax(dim=2), ref.amax(dim=2)        # per (tile, slot) row
+        assert (e <= 1e-3 * m).all(), (e / m).nan_to_num().max()
+    with pytest.raises(ValueError, match="CUDA"):
+        bwd_stacked(*(a.cpu() if torch.is_tensor(a) else a for a in args), impl="cuda")
 
 
 def _train_grads(params, cams, cfg, gt):

@@ -1,20 +1,41 @@
-"""The plain versions of the four probe kernels against the expressions the
-JAX probe scripts check themselves with (`scripts_dev/probe_kernel_gather.py`,
-`probe_seg_dma.py`, `probe_cumsum.py`), computed here with jax.numpy / numpy
-on the same seeded numpy inputs at a small size. The probe scripts run at
-import and without interpret mode, so they are not imported.
+"""The plain versions of the probe kernels against the JAX probe scripts.
+
+Four of them are held against the expressions the scripts check themselves
+with (`scripts_dev/probe_kernel_gather.py`, `probe_seg_dma.py`,
+`probe_cumsum.py`), computed here with jax.numpy / numpy on the same seeded
+numpy inputs at a small size: those scripts run at import and without
+interpret mode, so they are not imported. `scripts_dev/probe_bwd_stacked.py`
+guards its `main()`, so `bwd_stacked_plain` is held against the Pallas kernel
+itself in interpret mode, and against the port's `rasterize_bwd_plain`.
 
 Tolerances: the gather and the segment fetch move bits (exact); the scatter
 adds each row's contributors in index order on both sides, but XLA may
 associate its scatter-add otherwise (atol 1e-5 on sums of ~10 unit normals);
 the exclusive cumulative sum against `np.cumsum(x, 0) - x` atol 1e-6 (values
-~0.01, the subtraction rounds once more).
+~0.01, the subtraction rounds once more). `bwd_stacked_plain` per column:
+within 1e-5 of max|want| + 1e-7 of `rasterize_bwd_plain` (both sum float32
+terms, in another order; the stacked one takes its moment products in float64)
+and within 2e-5 of max|want| + 1e-7 of the Pallas kernel, whose float32
+moment matmuls expand (px - mx)^2 and cancel (the bound
+`tests/test_torch_backward.py` holds `rasterize_bwd_plain` to against the
+other Pallas backward kernels).
 """
+import importlib.util
+import sys
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_kernels import IMG_H, IMG_W
+from test_torch_kernels import K as BLOCK_K
+from test_torch_kernels import _blocks
 
+from splat_tpu.ops import tiling as jtiling
+from splat_tpu.ops.pallas.rasterize_kernels import rasterize_fwd_packed
+from splat_tpu_torch.ops.cuda import rasterize_kernels as trk
+from splat_tpu_torch.ops.cuda.bwd_stacked import bwd_stacked, bwd_stacked_plain
 from splat_tpu_torch.ops.cuda.chunk_cumsum import chunk_cumsum, chunk_cumsum_plain
 from splat_tpu_torch.ops.cuda.row_gather import row_gather, row_gather_plain
 from splat_tpu_torch.ops.cuda.row_scatter import row_scatter, row_scatter_plain, scatter_plan
@@ -126,3 +147,73 @@ def test_chunk_cumsum_plain_matches_probe_expression(variant):
         chunk_cumsum(torch.tensor(x), variant=variant, impl="cuda")
     with pytest.raises(ValueError, match="variant"):
         chunk_cumsum(torch.tensor(x), variant="roll")
+
+
+def _jax_probe(name):
+    """Import scripts_dev/<name>.py (a script whose main() is guarded)."""
+    spec = importlib.util.spec_from_file_location(
+        name, Path(__file__).resolve().parents[1] / "scripts_dev" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("tile_size,n_samples,rs,tps",
+                         [(8, 1, 0.0, 1), (8, 3, 0.04, 2), ((16, 8), 3, 0.04, 1)])
+def test_bwd_stacked_plain_matches_pallas_probe_and_rasterize_bwd_plain(
+        tile_size, n_samples, rs, tps, monkeypatch):
+    probe = _jax_probe("probe_bwd_stacked")
+    blocks, counts = _blocks(tile_size)
+    n_tiles = blocks.shape[0]
+    assert n_tiles % tps == 0
+    tiles_x = jtiling.num_tiles(IMG_W, IMG_H, tile_size)[0]
+    eps = np.linspace(-0.5, 0.5, n_samples).astype(np.float32) * 0.06
+    rows = jnp.asarray(blocks).transpose(0, 2, 1)                  # (T, 13, K)
+    fwd = rasterize_fwd_packed(rows, jnp.asarray(counts), jnp.float32(rs), tile_size=tile_size,
+                               tiles_x=tiles_x, img_h=IMG_H, eps=jnp.asarray(eps))
+    g_out = np.zeros(fwd.shape, np.float32)
+    g_out[:, :, :trk.NOUT] = np.random.default_rng(5).normal(size=g_out[:, :, :trk.NOUT].shape)
+    jax_want = np.asarray(probe.bwd_stacked(
+        rows, jnp.asarray(counts), jnp.float32(rs), fwd, jnp.asarray(g_out), tile_size, tiles_x,
+        IMG_H, jnp.asarray(eps), tps)).transpose(0, 2, 1)          # (T, K, 13)
+
+    padded = torch.nn.functional.pad(torch.tensor(blocks), (0, trk.PARAM_STRIDE - trk.NPARAM))
+    args = (padded, torch.tensor(counts, dtype=torch.int32),
+            trk.scalar_vec(rs, 0.0, torch.tensor(eps), torch.device("cpu")),
+            torch.tensor(np.asarray(fwd)[:, :, :trk.NOUT]).contiguous(),
+            torch.tensor(g_out[:, :, :trk.NOUT]).contiguous(), tile_size, tiles_x, IMG_H)
+    got = bwd_stacked(*args)
+    assert got.shape == (n_tiles, BLOCK_K, trk.PARAM_STRIDE)
+    stacked_module = sys.modules[bwd_stacked_plain.__module__]
+    sp = n_samples * int(np.prod(np.broadcast_to(tile_size, 2)))
+    monkeypatch.setattr(stacked_module, "PLAIN_CHUNK", 32)
+    monkeypatch.setattr(stacked_module, "PLAIN_PLANE_ELEMS", 5 * sp * 32)   # 5 tiles at a time
+    assert torch.equal(got, bwd_stacked_plain(*args)), \
+        "the chunk and tile-group sizes do not change the result"
+    monkeypatch.undo()
+    assert not got[:, :, trk.NPARAM - 1:].any(), "log-opacity and pad columns are zero"
+    assert not got[0].any(), "the empty tile has no gradient"
+    for n, c in zip(counts, got):
+        assert not c[n:].any(), "slots past the count have no gradient"
+    port_want = trk.rasterize_bwd_plain(*args).numpy()
+    got = got.numpy()
+    for col in range(trk.NPARAM - 1):
+        for want, tol, what in ((port_want[:, :, col], 1e-5, "rasterize_bwd_plain"),
+                                (jax_want[:, :, col], 2e-5, "the Pallas probe kernel")):
+            scale = np.abs(want).max()
+            assert scale > 0, col
+            np.testing.assert_allclose(got[:, :, col], want, rtol=0, atol=tol * scale + 1e-7,
+                                       err_msg=f"column {col} against {what}")
+
+
+def test_bwd_stacked_wrapper_refuses_cpu_tensors_for_the_kernel():
+    blocks, counts = _blocks(8)
+    padded = torch.nn.functional.pad(torch.tensor(blocks), (0, trk.PARAM_STRIDE - trk.NPARAM))
+    planes = torch.zeros((blocks.shape[0], 1, trk.NOUT, 64))
+    args = (padded, torch.tensor(counts, dtype=torch.int32),
+            trk.scalar_vec(0.0, 0.0, None, torch.device("cpu")), planes, planes, 8, 6, IMG_H)
+    with pytest.raises(ValueError, match="CUDA"):
+        bwd_stacked(*args, impl="cuda")
+    with pytest.raises(ValueError, match="impl"):
+        bwd_stacked(*args, impl="pallas")
+    assert bwd_stacked(*args, impl="torch").shape == padded.shape
