@@ -12,7 +12,11 @@ Phases, each of which raises (and the script exits nonzero) on failure:
      (expf and summation order), the backward compositor on a seeded
      cotangent (pixel sums in another order) within 1e-5 of max|plain| per
      column and per column in each 64-slot batch, and 1e-3 of each row's
-     max; each also at S = 1 and with 16x8 tiles; row_gather bitwise at both
+     max; each also at S = 1 and with 16x8 tiles, and both on the adversarial
+     rows of `scripts_dev/probe_cull_torch.py` (S = 16, 16x16 and 16x8 tiles:
+     fast motion, near-degenerate conics, opacities under the floor, rows
+     grazing a warp's pixels), each bitwise equal over two launches, and the
+     per-warp cull never clearing a group where a pair composites; row_gather bitwise at both
      of the training step's shapes (the sorted ids over the parameter table,
      the entry slots over the slot gradients) and at its probe's; seg_dma in
      both variants (tps 1, 4, 8; align 8, 32, 128) bitwise on the same
@@ -53,7 +57,10 @@ Phases, each of which raises (and the script exits nonzero) on failure:
      launches row_scatter, seg_dma, chunk_cumsum and bwd_stacked;
   7. time each kernel, its plain version and a library yardstick on phase
      2's inputs (the probes' inputs for the probe kernels), beside the least
-     time the card could take;
+     time the card could take (for the compositors the smaller of two counts:
+     every live pixel of a tile, or only the (row, warp) groups where a pair
+     composites; both printed, with the share of groups the cull keeps and
+     ptxas's registers and spills);
   8. train a scene from disk at full width: `data.synthetic.generate_scene`
      writes a 1024x1024 scene directory (exposure and rolling shutter on,
      100,000 seed points), `cli.fit.main` trains it with the flagship flags
@@ -282,6 +289,8 @@ def main() -> int:
     probes = {name: load_probe(name) for name in
               ("probe_kernel_gather_torch", "probe_seg_dma_torch", "probe_cumsum_torch",
                "probe_bwd_stacked_torch")}
+    cull_probe = load_probe("probe_cull_torch")
+    ptxas_report = load_probe("time_compositors_torch").ptxas_report
     path_kernels = (seg_copy, rk.rasterize_fwd, rk.rasterize_bwd, row_gather)
     probe_kernels = (row_scatter, seg_dma, chunk_cumsum, bwd_stacked)
     stacked_probe = probes["probe_bwd_stacked_torch"]
@@ -528,6 +537,8 @@ def main() -> int:
     for name, r in report.items():
         info = [ln.strip() for ln in r["log"].splitlines() if "registers" in ln or "spill" in ln]
         print(f"  {name}: {r['seconds']:.2f} s; " + " | ".join(info[:4]))
+    compositor_ptxas = {name: ptxas_report(report[name]["log"]) if name in report else "cached"
+                        for name in ("rasterize_fwd", "rasterize_bwd")}
     card = nvidia_smi("name,power.limit")
     max_clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     props = torch.cuda.get_device_properties(0)
@@ -580,6 +591,8 @@ def main() -> int:
         work = None
         for label, e in (("S=5", eps), ("S=1", None)):
             got = rk.rasterize_fwd(*fwd_args, eps=e, impl="cuda")
+            check(torch.equal(got, rk.rasterize_fwd(*fwd_args, eps=e, impl="cuda")),
+                  f"rasterize_fwd {label}: two launches bitwise equal")
             want, w = rk.rasterize_fwd_plain(
                 blocks, lists.counts, rk.scalar_vec(rs, 0.0, e, dev), cfg.tile_size,
                 tiles_x, RES, count_work=True)
@@ -589,6 +602,7 @@ def main() -> int:
             print(f"rasterize_fwd vs plain, tile 16, {label}: max|err| rgb/T {err_c:.3g}, "
                   f"depth {err_d:.3g}")
             check(err_c <= 1e-4 and err_d <= 1e-3, f"rasterize_fwd {label} within tolerance")
+            check(w["missed_groups"] == 0, f"the cull keeps every compositing group, {label}")
             errs["rasterize_fwd"] = max(errs.get("rasterize_fwd", 0.0), err_c, err_d)
         lists_r, sp_r, eps_r, rs_r, _ = kernel_inputs((16, 8))
         blocks_r = seg_copy(sp_r, lists_r.starts, K, impl="cuda")
@@ -597,6 +611,8 @@ def main() -> int:
         r_args = (blocks_r, lists_r.counts, rs_r, (16, 8), tiling.num_tiles(RES, RES, (16, 8))[0],
                   RES)
         got = rk.rasterize_fwd(*r_args, eps=eps_r, impl="cuda")
+        check(torch.equal(got, rk.rasterize_fwd(*r_args, eps=eps_r, impl="cuda")),
+              "rasterize_fwd 16x8: two launches bitwise equal")
         want = rk.rasterize_fwd(*r_args, eps=eps_r, impl="torch")
         err_c = (got[:, :, [0, 1, 2, 4]] - want[:, :, [0, 1, 2, 4]]).abs().max().item()
         err_d = (got[:, :, 3] - want[:, :, 3]).abs().max().item()
@@ -614,6 +630,8 @@ def main() -> int:
                                 generator=torch.Generator(device=dev).manual_seed(SEED))
             args = (blk, lst.counts, scal, fwd, g_out, tile, tx_, full_h)
             got = rk.rasterize_bwd(*args, impl="cuda")
+            check(torch.equal(got, rk.rasterize_bwd(*args, impl="cuda")),
+                  f"rasterize_bwd {label}: two launches bitwise equal")
             want, w = rk.rasterize_bwd_plain(*args, count_work=True)
             check(not got[:, :, rk.NPARAM - 1:].any(), f"rasterize_bwd {label}: zero columns")
             shares = stacked_probe.shares(got, want)
@@ -631,6 +649,17 @@ def main() -> int:
                                        tiles_x, RES)
         check_bwd("tile 16, S=1", blocks, lists, None, cfg.tile_size, tiles_x, RES)
         check_bwd("tile 16x8, S=5", blocks_r, lists_r, eps_r, (16, 8), r_args[4], RES)
+        # both compositors on the adversarial rows of the cull's probe
+        for tile in (cfg.tile_size, (16, 8)):
+            r = cull_probe.check(cull_probe.make_inputs(dev, tile))
+            errs["rasterize_fwd"] = max(errs["rasterize_fwd"], r["fwd_rgb_T"], r["fwd_depth"])
+            errs["rasterize_bwd"] = max(errs["rasterize_bwd"], r["bwd_max_abs_err"])
+            w = r["work"]
+            print(f"adversarial rows, tile {tile}, S=16: rasterize_fwd max|err| rgb/T "
+                  f"{r['fwd_rgb_T']:.3g}, depth {r['fwd_depth']:.3g}; rasterize_bwd "
+                  f"{r['bwd_column_share']:.3g} of max|plain| per column; both bitwise equal over "
+                  f"two launches; the cull keeps {w['kept_groups']} of {w['warp_groups']} live "
+                  f"(row, warp) groups, every one of the {w['hit_groups']} that composite")
         # bwd_stacked on the backward compositor's inputs (4096 tiles, K = 256,
         # S = 5: 1280 stacked rows on 1024 threads), held to its bounds against
         # its own plain version and against the rasterize_bwd kernel
@@ -1035,21 +1064,51 @@ def main() -> int:
         fwd_ms = time_cuda(lambda: rk.rasterize_fwd(*fwd_args, eps=eps, impl="cuda"),
                            KERNEL_RUNS, KERNEL_REPS)
         fwd_plain_ms = time_cuda(lambda: rk.rasterize_fwd(*fwd_args, eps=eps, impl="torch"), 5)
+        def compositor_bound(w, flops_per_hit, flops_per_row, extra_flops, nbytes):
+            """The least time for a compositor's work, counted two ways:
+            every live pixel of a live tile row ("pixel": the old count), or
+            only the (row, warp) groups where some pair composites ("warp":
+            the least any warp-granular design does). Each is the larger of
+            the bytes and the operations (FP32 flops, or the exps on the
+            special-function units); the bound is the smaller count's."""
+            out = {}
+            for gran, pairs, row_pixels in (("pixel", "live_pairs", "live_row_pixels"),
+                                            ("warp", "warp_live_pairs", "warp_live_row_pixels")):
+                flops = (w[pairs] * FLOPS_PER_PAIR + w["hit_pairs"] * flops_per_hit + extra_flops
+                         + w[row_pixels] * FLOPS_PER_ROW_PIXEL + w["live_rows"] * flops_per_row)
+                times = {"bytes": nbytes / hbm * 1e3,
+                         "operations": max(flops / fp32_peak, w["hit_pairs"] / sfu_peak) * 1e3}
+                by = max(times, key=times.get)
+                out[gran] = {"ms": times[by], "by": by, "flops": flops}
+            out["bound"] = min(out["pixel"], out["warp"], key=lambda r: r["ms"])
+            return out
+
+        def said_bound(b):
+            return (f"bound {b['bound']['ms']:.4f} ms by {b['bound']['by']} (warp-granular count "
+                    f"{b['warp']['flops']} flop, {b['warp']['ms']:.4f} ms; pixel-granular "
+                    f"{b['pixel']['flops']} flop, {b['pixel']['ms']:.4f} ms)")
+
         fwd_bytes = (work["live_rows"] * rk.PARAM_STRIDE * 4 + n_tiles * 4
                      + n_tiles * n_s * rk.NOUT * npix * 4)
-        fwd_flops = (work["live_pairs"] * FLOPS_PER_PAIR + work["hit_pairs"] * FWD_FLOPS_PER_HIT
-                     + work["live_row_pixels"] * FLOPS_PER_ROW_PIXEL
-                     + work["live_rows"] * FLOPS_PER_ROW)
-        fwd_times = {"bytes": fwd_bytes / hbm * 1e3,
-                     "operations": max(fwd_flops / fp32_peak, work["hit_pairs"] / sfu_peak) * 1e3}
-        fwd_bound_by = max(fwd_times, key=fwd_times.get)
+        fwd_b = compositor_bound(work, FWD_FLOPS_PER_HIT, FLOPS_PER_ROW, 0, fwd_bytes)
+        keep_share = work["kept_groups"] / max(work["warp_groups"], 1)
         print(f"seg_copy: {seg_ms:.4f} ms (plain {seg_plain_ms:.4f}, index_select "
               f"{seg_lib_ms:.4f}, bound {seg_bound:.4f} ms from {seg_bytes} B: "
               f"{seg_rows_read} stream rows read, {n_tiles * K} written)")
-        print(f"rasterize_fwd: {fwd_ms:.4f} ms (plain {fwd_plain_ms:.4f}; bound "
-              f"{fwd_times[fwd_bound_by]:.4f} ms by {fwd_bound_by}: {fwd_flops} flop at "
-              f"{fp32_peak / 1e12:.1f} TFLOP/s, {work['hit_pairs']} exp at "
+        print(f"rasterize_fwd: {fwd_ms:.4f} ms (plain {fwd_plain_ms:.4f}; {said_bound(fwd_b)}; "
+              f"at {fp32_peak / 1e12:.1f} TFLOP/s, {work['hit_pairs']} exp at "
               f"{sfu_peak / 1e12:.2f} T/s, {fwd_bytes} B)")
+        print(f"the cull at camera 0's binning: {work['warp_groups']} (row, warp) groups with a "
+              f"live pixel, {work['kept_groups']} kept ({keep_share:.4f}), {work['hit_groups']} "
+              f"composite ({work['hit_groups'] / max(work['warp_groups'], 1):.4f}); live pairs "
+              f"{work['live_pairs']}, in composing groups {work['warp_live_pairs']}; live (row, "
+              f"pixel) steps {work['live_row_pixels']}, in composing groups "
+              f"{work['warp_live_row_pixels']}; a warp runs the compositing step "
+              f"{work['hit_warp_samples']} times ((row, warp, sample) with a hit), "
+              f"{work['hit_pairs'] / max(32 * work['hit_warp_samples'], 1):.4f} of its lanes "
+              f"compositing there")
+        for kname, rep_ in compositor_ptxas.items():
+            print(f"ptxas, {kname} at S=5: {rep_}")
 
         bwd_ms = time_cuda(lambda: rk.rasterize_bwd(*bwd_args, impl="cuda"), KERNEL_RUNS,
                            KERNEL_REPS)
@@ -1057,16 +1116,10 @@ def main() -> int:
         bw = bwd_work
         bwd_bytes = (bw["live_rows"] * rk.PARAM_STRIDE * 4 + n_tiles * 4
                      + 2 * n_tiles * n_s * rk.NOUT * npix * 4 + n_tiles * K * rk.PARAM_STRIDE * 4)
-        bwd_flops = (bw["live_pairs"] * FLOPS_PER_PAIR + bw["hit_pairs"] * BWD_FLOPS_PER_HIT
-                     + bw["sigma_pairs"] * BWD_FLOPS_PER_SIGMA
-                     + bw["live_row_pixels"] * FLOPS_PER_ROW_PIXEL
-                     + bw["live_rows"] * BWD_FLOPS_PER_ROW)
-        bwd_times = {"bytes": bwd_bytes / hbm * 1e3,
-                     "operations": max(bwd_flops / fp32_peak, bw["hit_pairs"] / sfu_peak) * 1e3}
-        bwd_bound_by = max(bwd_times, key=bwd_times.get)
-        print(f"rasterize_bwd: {bwd_ms:.4f} ms (plain {bwd_plain_ms:.4f}; bound "
-              f"{bwd_times[bwd_bound_by]:.4f} ms by {bwd_bound_by}: {bwd_flops} flop at "
-              f"{fp32_peak / 1e12:.1f} TFLOP/s from {bw['live_pairs']} live pairs, "
+        bwd_b = compositor_bound(bw, BWD_FLOPS_PER_HIT, BWD_FLOPS_PER_ROW,
+                                 bw["sigma_pairs"] * BWD_FLOPS_PER_SIGMA, bwd_bytes)
+        print(f"rasterize_bwd: {bwd_ms:.4f} ms (plain {bwd_plain_ms:.4f}; {said_bound(bwd_b)}; "
+              f"at {fp32_peak / 1e12:.1f} TFLOP/s from {bw['live_pairs']} live pairs, "
               f"{bw['hit_pairs']} compositing ({bw['sigma_pairs']} below the clamp), "
               f"{bw['live_row_pixels']} live (row, pixel) steps, {bw['live_rows']} live rows; "
               f"{bw['hit_pairs']} exp at {sfu_peak / 1e12:.2f} T/s; {bwd_bytes} B)")
@@ -1083,7 +1136,7 @@ def main() -> int:
         coefficient_passes = min(n_s, 1024 // npix)
         stacked_extra_flops = bw["live_row_pixels"] * FLOPS_PER_ROW_PIXEL * (coefficient_passes - 1)
         print(f"bwd_stacked: {stacked_ms:.4f} ms at tps={best_tps} (plain {stacked_plain_ms:.4f}; "
-              f"bound {bwd_times[bwd_bound_by]:.4f} ms by {bwd_bound_by}, rasterize_bwd's: the "
+              f"bound {bwd_b['bound']['ms']:.4f} ms by {bwd_b['bound']['by']}, rasterize_bwd's: the "
               f"same function of the same inputs; its mapping forms the sigma coefficients "
               f"{coefficient_passes} times per pixel, {stacked_extra_flops} flop beyond that count, "
               f"{stacked_extra_flops / fp32_peak * 1e3:.4f} ms at the peak rate)")
@@ -1103,15 +1156,18 @@ def main() -> int:
          "covers": ["splat_tpu/ops/pallas/rasterize_kernels.py:586",
                     "splat_tpu/ops/pallas/rasterize_kernels_gmajor.py:428"],
          "launches": launches["rasterize_fwd"], "max_abs_err": errs["rasterize_fwd"],
-         "ms": fwd_ms, "plain_ms": fwd_plain_ms, "bound_ms": fwd_times[fwd_bound_by],
-         "bound_by": fwd_bound_by, "library_ms": None},
+         "ms": fwd_ms, "plain_ms": fwd_plain_ms, "bound_ms": fwd_b["bound"]["ms"],
+         "bound_by": fwd_b["bound"]["by"], "library_ms": None,
+         # the bound counted over every live pixel of a tile (before the cull)
+         "pixel_bound_ms": fwd_b["pixel"]["ms"], "cull_keep_share": keep_share},
         {"name": "rasterize_bwd", "route": "cuda",
          "source": "splat_tpu_torch/ops/cuda/csrc/rasterize_bwd.cu",
          "replaces": "splat_tpu/ops/pallas/rasterize_kernels.py:636",
          "covers": ["splat_tpu/ops/pallas/rasterize_kernels_gmajor.py:482"],
          "launches": launches["rasterize_bwd"], "max_abs_err": errs["rasterize_bwd"],
-         "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_times[bwd_bound_by],
-         "bound_by": bwd_bound_by, "library_ms": None},
+         "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_b["bound"]["ms"],
+         "bound_by": bwd_b["bound"]["by"], "library_ms": None,
+         "pixel_bound_ms": bwd_b["pixel"]["ms"], "cull_keep_share": keep_share},
         # the train step's forward gather (the sorted ids over the parameter table)
         {"name": "row_gather", "route": "cuda",
          "source": "splat_tpu_torch/ops/cuda/csrc/row_gather.cu",
@@ -1143,7 +1199,7 @@ def main() -> int:
          "replaces": "scripts_dev/probe_bwd_stacked.py:198",
          "launches": probe_launches["bwd_stacked"], "max_abs_err": errs["bwd_stacked"],
          "ms": stacked_ms, "plain_ms": stacked_plain_ms,
-         "bound_ms": bwd_times[bwd_bound_by], "bound_by": bwd_bound_by,
+         "bound_ms": bwd_b["bound"]["ms"], "bound_by": bwd_b["bound"]["by"],
          "library_ms": None, "coefficient_passes": coefficient_passes},
     ]
     by_path["fit"] = fit["launches"]

@@ -14,6 +14,10 @@ tensors (and both plain versions under impl="torch").
 
 Output (T, S, NOUT, npix): rows 0-2 rgb, 3 depth_acc, 4 final transmittance
 (the TPU kernel's zero rows 5-7 are left out).
+
+Both kernels skip the (row, warp) groups that `warp_hit_mask` clears: its
+plain version, the same float32 computation, is here for the tests and for
+the work counts.
 """
 from __future__ import annotations
 
@@ -35,6 +39,13 @@ MAX_TILE_PIXELS = 256
 LOG_THRESH = math.log(ALPHA_THRESH)
 LOG_MAX_ALPHA = math.log(MAX_ALPHA)
 WARP = 32
+# the cull's slack (csrc/raster_common.cuh says why each is enough); powers
+# of two, the same floats in both languages
+SIGMA_ABS_SLACK = 2.0 ** -13
+SIGMA_REL_SLACK = 2.0 ** -18
+DET_REL_SLACK = 2.0 ** -20
+BOX_MARGIN = 1.0
+BOX_REL_MARGIN = 2.0 ** -16
 
 
 def scalar_vec(rs_time, row_offset, eps: torch.Tensor | None,
@@ -86,19 +97,110 @@ def _row_alpha(g, tx, ty, px, py, ts, T, in_count):
     return dx0, dy0, alpha, lo, live
 
 
-def _new_work(dev, keys=("live_pairs", "live_row_pixels", "live_rows", "hit_pairs")):
+def warp_hit_mask(params: torch.Tensor, counts: torch.Tensor, scalars: torch.Tensor,
+                  tile_size, tiles_x: int, img_h: int) -> torch.Tensor:
+    """(T, K, n_warps) bool: whether slot k can reach any pixel of warp w (32
+    consecutive pixels of the tile) at any sample time of the tile. The
+    kernels' per-row cull (`warp_mask` in csrc/raster_common.cuh), operation
+    for operation in float32: the ellipse sigma <= lo_hi - log(1/255), with
+    rounding slack, swept over the tile's least and greatest sample time and
+    grown by a margin, against each warp's pixel box. Never False where the
+    recurrence composites a pair; False for slots past the tile's count."""
+    n_tiles, k, _ = params.shape
+    sw, sh = tile_wh(tile_size)
+    npix = sw * sh
+    dev = params.device
+    f32 = torch.float32
+    tid = torch.arange(n_tiles, device=dev)
+    tx = ((tid % tiles_x) * sw).to(f32)[:, None]                 # (T, 1)
+    ty = ((tid // tiles_x) * sh).to(f32)[:, None]
+    img_h_t = torch.full((), float(img_h), dtype=f32, device=dev)
+    rs, row_off, eps = scalars[0], scalars[1], scalars[2:]
+    t_first = rs * ((0.5 + ty + row_off) / img_h_t - 0.5)
+    t_last = rs * (((sh - 1) + 0.5 + ty + row_off) / img_h_t - 0.5)
+    t_lo = eps.min() + torch.minimum(t_first, t_last)            # (T, 1)
+    t_hi = eps.max() + torch.maximum(t_first, t_last)
+
+    mx = params[..., 0] - tx                                     # (T, K)
+    my = params[..., 1] - ty
+    ca, cb, cc = params[..., 2], params[..., 3], params[..., 4]
+    pvx, pvy, lo_hi = params[..., 10], params[..., 11], params[..., 12]
+    chk = ca + cb + cc + pvx + pvy + mx + my + lo_hi + t_lo + t_hi
+    tau = lo_hi - LOG_THRESH
+    det = ca * cc - cb * cb
+    det_lo = det - DET_REL_SLACK * ((ca * cc).abs() + cb * cb)
+    sx_a, sx_b = pvx * t_lo, pvx * t_hi
+    sy_a, sy_b = pvy * t_lo, pvy * t_hi
+    sx_abs = torch.maximum(sx_a.abs(), sx_b.abs())
+    sy_abs = torch.maximum(sy_a.abs(), sy_b.abs())
+    ax = torch.maximum((0.5 - mx).abs(), ((sw - 0.5) - mx).abs()) + sx_abs
+    ay = torch.maximum((0.5 - my).abs(), ((sh - 0.5) - my).abs()) + sy_abs
+    mag = 0.5 * (ca.abs() * ax * ax + cc.abs() * ay * ay) + cb.abs() * ax * ay
+    tau2 = tau + SIGMA_ABS_SLACK + SIGMA_REL_SLACK * mag
+    hx = torch.sqrt(2.0 * tau2 * cc / det_lo)
+    hy = torch.sqrt(2.0 * tau2 * ca / det_lo)
+    mgx = BOX_MARGIN + BOX_REL_MARGIN * (hx + mx.abs() + sx_abs)
+    mgy = BOX_MARGIN + BOX_REL_MARGIN * (hy + my.abs() + sy_abs)
+    x_lo = (mx + torch.minimum(sx_a, sx_b) - hx - mgx)[..., None]
+    x_hi = (mx + torch.maximum(sx_a, sx_b) + hx + mgx)[..., None]
+    y_lo = (my + torch.minimum(sy_a, sy_b) - hy - mgy)[..., None]
+    y_hi = (my + torch.maximum(sy_a, sy_b) + hy + mgy)[..., None]
+    # each warp's pixel centres: whole rows row0..row1, or part of one row
+    p0 = torch.arange(0, npix, WARP, device=dev)
+    p1 = torch.clamp(p0 + WARP, max=npix) - 1
+    row0, row1 = p0 // sw, p1 // sw
+    one_row = row0 == row1
+    col0 = torch.where(one_row, p0 % sw, 0).to(f32) + 0.5
+    col1 = torch.where(one_row, p1 % sw, sw - 1).to(f32) + 0.5
+    row0, row1 = row0.to(f32) + 0.5, row1.to(f32) + 0.5
+    miss = (x_hi < col0) | (x_lo > col1) | (y_hi < row0) | (y_lo > row1)   # (T, K, n_warps)
+    keep_all = (~torch.isfinite(chk)
+                | ((lo_hi >= LOG_THRESH) & ~((ca > 0.0) & (det_lo > 0.0))))[..., None]
+    culled = torch.isfinite(chk) & (lo_hi < LOG_THRESH)
+    mask = keep_all | (~culled[..., None] & ~miss)
+    in_count = torch.arange(k, device=dev) < torch.clamp(counts.long(), max=k)[:, None]
+    return mask & in_count[..., None]
+
+
+WORK_KEYS = ("live_pairs", "live_row_pixels", "live_rows", "hit_pairs", "warp_live_pairs",
+             "warp_live_row_pixels", "warp_groups", "kept_groups", "hit_groups",
+             "missed_groups", "hit_warp_samples")
+
+
+def _new_work(dev, keys=WORK_KEYS):
     return {k: torch.zeros((), dtype=torch.int64, device=dev) for k in keys}
 
 
-def _count_step(work, T, in_count, live):
+def _by_warp(x: torch.Tensor) -> torch.Tensor:
+    """(..., npix) -> (..., n_warps, 32), pixels past the tile padded with 0."""
+    x = x.to(torch.int32)
+    pad = (-x.shape[-1]) % WARP
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+    return x.reshape(*x.shape[:-1], -1, WARP)
+
+
+def _count_step(work, T, in_count, live, kept):
     """Add one slot's work to the counts of rasterize_fwd_plain(count_work);
-    live (T, S, npix) marks the pairs that composite."""
+    live (T, S, npix) marks the pairs that composite, kept (T, n_warps) the
+    warps the cull keeps."""
     alive = (T > T_EPS) & in_count                               # (T, S, npix)
     alive_pix = alive.any(dim=1)                                 # (T, npix)
     work["live_pairs"] += alive.sum()
     work["live_row_pixels"] += alive_pix.sum()
     work["live_rows"] += alive_pix.any(dim=1).sum()
     work["hit_pairs"] += live.sum()
+    # by (row, warp) group
+    pairs_w = _by_warp(alive).sum(dim=(1, 3))                    # (T, n_warps)
+    pix_w = _by_warp(alive_pix).sum(dim=2)
+    hit_w = _by_warp(live).sum(dim=(1, 3)) > 0
+    work["warp_live_pairs"] += (pairs_w * hit_w).sum()
+    work["warp_live_row_pixels"] += (pix_w * hit_w).sum()
+    work["warp_groups"] += (pix_w > 0).sum()
+    work["kept_groups"] += ((pix_w > 0) & kept).sum()
+    work["hit_groups"] += hit_w.sum()
+    work["missed_groups"] += (hit_w & ~kept).sum()
+    work["hit_warp_samples"] += (_by_warp(live).sum(dim=3) > 0).sum()
 
 
 def rasterize_fwd_plain(params: torch.Tensor, counts: torch.Tensor,
@@ -114,7 +216,17 @@ def rasterize_fwd_plain(params: torch.Tensor, counts: torch.Tensor,
     sample of the pixel has T > T_EPS (each needs the sigma coefficients);
     `live_rows`, the tile rows read before every pixel of the tile stopped
     (the kernel's early exit); and `hit_pairs`, the live pairs that
-    composite (alpha above its floor)."""
+    composite (alpha above its floor). By (row, warp) group, a warp being 32
+    consecutive pixels: `warp_live_pairs` and `warp_live_row_pixels`, the
+    live pairs and (row, pixel) steps in groups where some pair composites
+    (the least work a warp-granular kernel must do); `warp_groups`, the
+    groups with a live pixel; `kept_groups`, those of them `warp_hit_mask`
+    keeps (the groups the kernels evaluate, but for a warp's stop at a batch
+    boundary); `hit_groups`, the groups where some pair composites; and
+    `missed_groups`, hit groups the mask clears (0: the cull is sound);
+    `hit_warp_samples`, the (row, warp, sample) triples where some pixel
+    composites (the times a warp runs the compositing step, so hit_pairs /
+    (32 hit_warp_samples) is the share of its lanes that do work there)."""
     n_tiles, k, _ = params.shape
     n_samples = scalars.shape[0] - 2
     dev = params.device
@@ -125,11 +237,13 @@ def rasterize_fwd_plain(params: torch.Tensor, counts: torch.Tensor,
     acc = [torch.zeros_like(T) for _ in range(4)]
     n_max = int(n.max()) if n_tiles else 0
     work = _new_work(dev)
+    if count_work:
+        kept = warp_hit_mask(params, counts, scalars, tile_size, tiles_x, img_h)
     for j in range(n_max):
         g = params[:, j, :, None, None]                          # (T, P, 1, 1)
         _, _, alpha, _, live = _row_alpha(g, tx, ty, px, py, ts, T, (j < n)[:, None, None])
         if count_work:
-            _count_step(work, T, (j < n)[:, None, None], live)
+            _count_step(work, T, (j < n)[:, None, None], live, kept[:, j])
         w = T * alpha
         for r, col in enumerate((5, 6, 7, 9)):
             acc[r] = acc[r] + w * g[:, col]
@@ -175,14 +289,15 @@ def rasterize_bwd_plain(params: torch.Tensor, counts: torch.Tensor,
     prefix = torch.zeros_like(a_total)
     d_params = torch.zeros((n_tiles, k, p), dtype=torch.float32, device=dev)
     n_max = int(n.max()) if n_tiles else 0
-    work = _new_work(dev, ("live_pairs", "live_row_pixels", "live_rows", "hit_pairs",
-                           "sigma_pairs"))
+    work = _new_work(dev, WORK_KEYS + ("sigma_pairs",))
+    if count_work:
+        kept = warp_hit_mask(params, counts, scalars, tile_size, tiles_x, img_h)
     for j in range(n_max):
         g = params[:, j, :, None, None]                          # (T, P, 1, 1)
         dx0, dy0, alpha, lo, live = _row_alpha(g, tx, ty, px, py, ts, T,
                                                (j < n)[:, None, None])
         if count_work:
-            _count_step(work, T, (j < n)[:, None, None], live)
+            _count_step(work, T, (j < n)[:, None, None], live, kept[:, j])
             work["sigma_pairs"] += (live & (lo < LOG_MAX_ALPHA)).sum()
         w = T * alpha
         v = g[:, 5] * dC[0] + g[:, 6] * dC[1] + g[:, 7] * dC[2] + g[:, 9] * dC[3]

@@ -7,9 +7,13 @@ runs on its own:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerances: seg_copy moves bits (exact). The compositor and its plain
-version do the same float32 operations in the same order (the kernels are
-built with -fmad=false), so they differ only where expf does: atol 1e-4 on
-rgb and T, 1e-3 on depth_acc (depths ~4). The backward kernel reruns the
+version do the same float32 operations in the same order where they feed a
+mask (the kernels are built with -fmad=false), so they differ only where expf
+does and in the four colour and depth sums, which the kernel contracts into
+FMAs: atol 1e-4 on rgb and T, 1e-3 on depth_acc (depths ~4). Both compositors
+are bitwise equal over two launches, and hold these tolerances on the
+adversarial rows of scripts_dev/probe_cull_torch.py too (their per-warp cull
+must keep every group where a pair composites). The backward kernel reruns the
 same per-pixel arithmetic and sums over pixels in another order than its
 plain version: |kernel - plain| <= 1e-5 * max|plain| per column within each
 64-slot batch (the deeper batches' gradients are ~1e-3 of the first's, so a
@@ -33,6 +37,8 @@ association: both within 1e-6 of max|plain| of the plain version on the CPU
 own atol 1e-3 of the plain version on the card (a parallel scan).
 """
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -111,10 +117,23 @@ def test_kernels_match_plain_on_card(cuda_device, tile_size, n_samples, row_off)
     got = rk.rasterize_fwd(*args, row_offset=row_off, eps=eps, impl="cuda")
     want = rk.rasterize_fwd(*args, row_offset=row_off, eps=eps, impl="torch")
     torch.cuda.synchronize()
+    assert torch.equal(got, rk.rasterize_fwd(*args, row_offset=row_off, eps=eps, impl="cuda"))
     torch.testing.assert_close(got[:, :, [0, 1, 2, 4]], want[:, :, [0, 1, 2, 4]],
                                atol=1e-4, rtol=0)
     torch.testing.assert_close(got[:, :, 3], want[:, :, 3], atol=1e-3, rtol=0)
     assert (got[:, :, 4] < 0.5).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_size,n_samples,rs", [(16, 16, -0.05), ((16, 8), 16, 0.04),
+                                                   (16, 1, 0.0)])
+def test_compositors_on_adversarial_rows_on_card(cuda_device, tile_size, n_samples, rs):
+    spec = importlib.util.spec_from_file_location(
+        "probe_cull_torch", Path(__file__).resolve().parents[1] / "scripts_dev" / "probe_cull_torch.py")
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    res = probe.check(probe.make_inputs(cuda_device, tile_size, n_samples, rs))
+    assert res["work"]["missed_groups"] == 0 and res["work"]["hit_groups"] > 0
 
 
 @pytest.mark.cuda

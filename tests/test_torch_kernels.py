@@ -7,8 +7,14 @@ Tolerances: the compositor runs the same math as the TPU kernels but as a
 sequential per-pixel recurrence instead of a log-space matmul prefix, so
 values differ by float32 rounding (a few ulp per step over <= 128 steps):
 atol 1e-4 on rgb and T, 1e-3 on depth_acc (depths are ~4, so 1e-3 is the
-same relative error). The segment copy moves bits: exact.
+same relative error). The segment copy moves bits: exact. The kernels' per-warp
+cull (`warp_hit_mask`) is held to soundness, exactly: on adversarial rows
+(`scripts_dev/probe_cull_torch.py`) it never clears a (row, warp) group where
+the recurrence's float32 condition composites a pair.
 """
+import importlib.util
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -124,7 +130,9 @@ def test_rasterize_fwd_plain_counts_work():
     _, work = trk.rasterize_fwd_plain(faint, counts_t, scalars, 8, tiles_x, IMG_H,
                                       count_work=True)
     assert work == dict(live_pairs=rows * npix * n_s, live_row_pixels=rows * npix,
-                        live_rows=rows, hit_pairs=0)
+                        live_rows=rows, hit_pairs=0, warp_live_pairs=0, warp_live_row_pixels=0,
+                        warp_groups=rows * npix // trk.WARP, kept_groups=0, hit_groups=0,
+                        missed_groups=0, hit_warp_samples=0)
 
     out, work = trk.rasterize_fwd_plain(padded, counts_t, scalars, 8, tiles_x, IMG_H,
                                         count_work=True)
@@ -136,6 +144,65 @@ def test_rasterize_fwd_plain_counts_work():
     assert work["live_row_pixels"] * n_s >= work["live_pairs"]
     assert 0 < work["live_rows"] <= rows and work["live_pairs"] < rows * npix * n_s
     assert 0 < work["hit_pairs"] < work["live_pairs"]
+    assert work["hit_pairs"] <= work["warp_live_pairs"] < work["live_pairs"]
+    assert work["warp_live_row_pixels"] < work["live_row_pixels"]
+    assert work["missed_groups"] == 0
+    assert 0 < work["hit_groups"] <= work["kept_groups"] < work["warp_groups"]
+    assert work["hit_groups"] <= work["hit_warp_samples"] <= work["hit_groups"] * n_s
+    assert work["hit_pairs"] <= work["hit_warp_samples"] * trk.WARP
+
+
+def _probe_cull():
+    spec = importlib.util.spec_from_file_location(
+        "probe_cull_torch", Path(__file__).resolve().parents[1] / "scripts_dev" / "probe_cull_torch.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("tile_size,n_samples,rs,nonfinite", [
+    (16, 16, -0.05, False), (16, 1, -0.05, True), ((16, 8), 16, 0.04, True),
+    ((16, 8), 1, -0.05, False), (8, 5, -0.05, False), (16, 1, 0.0, False)])
+def test_warp_hit_mask_keeps_every_compositing_group(tile_size, n_samples, rs, nonfinite,
+                                                     monkeypatch):
+    """Adversarial rows (near-degenerate and indefinite conics, pixel
+    velocities of hundreds of px/s, log opacities under and at the floor,
+    negative rs, a row offset, NaN and inf): every (row, warp) group where
+    the float32 condition T > T_EPS, lo >= log(1/255), lo <= lo_hi holds for
+    some pixel and sample is kept, with T held at 1 (so no pixel stops) and
+    on the recurrence itself; so is it by the swept box without its rounding
+    slack and margin (which would hide a box a fraction of a pixel short);
+    the mask still culls, and the warp-granular work counts lie between the
+    compositing pairs and the live pairs."""
+    inp = _probe_cull().make_inputs(torch.device("cpu"), tile_size, n_samples, rs,
+                                    nonfinite=nonfinite)
+    p, counts, scalars = inp["params"], inp["counts"], inp["scalars"]
+    geo = (inp["tile_size"], inp["tiles_x"], inp["img_h"])
+    mask = trk.warp_hit_mask(p, counts, scalars, *geo)
+    with monkeypatch.context() as m:
+        for name in ("SIGMA_ABS_SLACK", "SIGMA_REL_SLACK", "DET_REL_SLACK", "BOX_MARGIN",
+                     "BOX_REL_MARGIN"):
+            m.setattr(trk, name, 0.0)
+        bare = trk.warp_hit_mask(p, counts, scalars, *geo)
+    assert not (bare & ~mask).any()
+    n_tiles, k, _ = p.shape
+    tx, ty, px, py, ts = trk._tile_grid(n_tiles, scalars, *geo, p.device)
+    n = torch.clamp(counts.long(), max=k)
+    ones = torch.ones((n_tiles, ts.shape[1], px.shape[0]))
+    for j in range(k):
+        _, _, _, _, live = trk._row_alpha(p[:, j, :, None, None], tx, ty, px, py, ts, ones,
+                                          (j < n)[:, None, None])
+        hit = trk._by_warp(live).sum(dim=(1, 3)) > 0                  # (T, n_warps)
+        assert not (hit & ~bare[:, j]).any(), f"slot {j}: a hit group culled"
+    _, work = trk.rasterize_fwd_plain(p, counts, scalars, *geo, count_work=True)
+    assert work["missed_groups"] == 0
+    assert work["hit_pairs"] <= work["warp_live_pairs"] <= work["live_pairs"]
+    assert work["warp_live_row_pixels"] <= work["live_row_pixels"]
+    assert work["hit_groups"] <= work["kept_groups"] < work["warp_groups"]
+    in_count = (torch.arange(k) < n[:, None])[..., None].expand_as(mask)
+    assert mask.sum() < in_count.sum() and (in_count & ~mask).all(dim=2).any(), \
+        "some rows culled for every warp"
+    assert not mask[~in_count].any()
 
 
 def test_pack_param_table_matches_jax():
