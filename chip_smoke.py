@@ -278,10 +278,10 @@ def main() -> int:
     from splat_tpu_torch.ops import rasterize, tiling
     from splat_tpu_torch.ops.cuda import build
     from splat_tpu_torch.ops.cuda import rasterize_kernels as rk
-    from splat_tpu_torch.ops.cuda.bwd_stacked import bwd_stacked, bwd_stacked_plain
+    from splat_tpu_torch.ops.cuda.bwd_stacked import bwd_stacked, bwd_stacked_plain, stacked_layout
     from splat_tpu_torch.ops.cuda.chunk_cumsum import chunk_cumsum
     from splat_tpu_torch.ops.cuda.row_gather import row_gather, row_gather_plain
-    from splat_tpu_torch.ops.cuda.row_scatter import row_scatter
+    from splat_tpu_torch.ops.cuda.row_scatter import row_scatter, scatter_plan
     from splat_tpu_torch.ops.cuda.seg_copy import seg_copy, seg_copy_plain
     from splat_tpu_torch.ops.cuda.seg_dma import seg_dma
     from splat_tpu_torch.utils.profiling import nvidia_smi, time_cuda
@@ -292,7 +292,7 @@ def main() -> int:
     cull_probe = load_probe("probe_cull_torch")
     ptxas_report = load_probe("time_compositors_torch").ptxas_report
     path_kernels = (seg_copy, rk.rasterize_fwd, rk.rasterize_bwd, row_gather)
-    probe_kernels = (row_scatter, seg_dma, chunk_cumsum, bwd_stacked)
+    probe_kernels = (row_scatter, scatter_plan, seg_dma, chunk_cumsum, bwd_stacked)
     stacked_probe = probes["probe_bwd_stacked_torch"]
 
     def path_counts():
@@ -539,6 +539,16 @@ def main() -> int:
         print(f"  {name}: {r['seconds']:.2f} s; " + " | ".join(info[:4]))
     compositor_ptxas = {name: ptxas_report(report[name]["log"]) if name in report else "cached"
                         for name in ("rasterize_fwd", "rasterize_bwd")}
+    # bwd_stacked at S = 5 in its default layout for 16x16 tiles; row_scatter's
+    # sum for rows of a multiple of 4 floats and its plan kernels
+    stacked_rows = stacked_layout(5, 256).rows
+    probe_ptxas = {
+        f"bwd_stacked<5, {stacked_rows}>": ptxas_report(report["bwd_stacked"]["log"],
+                                                        f"ILi5ELi{stacked_rows}E")
+        if "bwd_stacked" in report else "cached",
+        "row_scatter": {**ptxas_report(report["row_scatter"]["log"], "row_scatter_vec4"),
+                        **ptxas_report(report["row_scatter"]["log"], "plan_")}
+        if "row_scatter" in report else "cached"}
     card = nvidia_smi("name,power.limit")
     max_clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     props = torch.cuda.get_device_properties(0)
@@ -982,8 +992,9 @@ def main() -> int:
         cumsum_res = probes["probe_cumsum_torch"].bench(probe_inputs["probe_cumsum_torch"], 5, 5)
         stacked_res = stacked_probe.bench(probe_inputs["probe_bwd_stacked_torch"], 5, 5)
         torch.cuda.synchronize()
-    probe_launches = {"row_scatter": row_scatter.launches, "seg_dma": seg_dma.launches,
-                      "chunk_cumsum": chunk_cumsum.launches, "bwd_stacked": bwd_stacked.launches}
+    probe_launches = {"row_scatter": row_scatter.launches, "scatter_plan": scatter_plan.launches,
+                      "seg_dma": seg_dma.launches, "chunk_cumsum": chunk_cumsum.launches,
+                      "bwd_stacked": bwd_stacked.launches}
     print("bwd_stacked, probe scene: " + ", ".join(
         f"tps={t} {ms:.4f}" for t, ms in stacked_res["tps"].items())
         + f" ms; rasterize_bwd {stacked_res['rasterize_bwd_ms']:.4f} ms")
@@ -1045,9 +1056,10 @@ def main() -> int:
               f"index_select {a['library_cold_ms']:.4f}; bound {a['bytes'] / hbm * 1e3:.4f} ms "
               f"from {a['bytes']} B)")
         b = gather_res["row_scatter"]
-        print(f"row_scatter, probe shape: {b['ms']:.4f} ms, {b['with_sort_ms']:.4f} with the "
-              f"sort (plain {b['plain_ms']:.4f}, index_add_ {b['library_ms']:.4f}; cold cache "
-              f"{b['cold_ms']:.4f}, index_add_ {b['library_cold_ms']:.4f}; bound "
+        print(f"row_scatter, probe shape: {b['ms']:.4f} ms with its plan on the card (plan "
+              f"{b['plan_ms']:.4f}, sum given the plan {b['kernel_ms']:.4f}; plain "
+              f"{b['plain_ms']:.4f}, index_add_ {b['library_ms']:.4f}; cold cache {b['cold_ms']:.4f}, "
+              f"sum {b['kernel_cold_ms']:.4f}, index_add_ {b['library_cold_ms']:.4f}; bound "
               f"{b['bytes'] / hbm * 1e3:.4f} ms from {b['bytes']} B)")
         print(f"seg_dma, probe shape: " + ", ".join(f"{k} {v:.4f}"
                                                      for k, v in dma_res["variants"].items())
@@ -1127,19 +1139,31 @@ def main() -> int:
         # bwd_stacked on the same inputs: the fastest tps of the probe's loop.
         # It computes rasterize_bwd's function, so its least time is
         # rasterize_bwd's. Its mapping does more than that count: a thread
-        # forms the sigma coefficients for its own rows, once per (row, pixel)
-        # and group of blockDim / npix samples.
+        # forms the sigma coefficients once per distinct pixel strip of its
+        # rows, and the per-sample cull keeps (row, strip, sample) groups.
         best_tps = stacked_res["best"]
         stacked_ms = time_cuda(lambda: bwd_stacked(*bwd_args, tps=best_tps, impl="cuda"),
                                KERNEL_RUNS, KERNEL_REPS)
+        _, stacked_work = bwd_stacked_plain(*bwd_args, count_work=True)
         stacked_plain_ms = time_cuda(lambda: bwd_stacked_plain(*bwd_args), 2)
-        coefficient_passes = min(n_s, 1024 // npix)
-        stacked_extra_flops = bw["live_row_pixels"] * FLOPS_PER_ROW_PIXEL * (coefficient_passes - 1)
-        print(f"bwd_stacked: {stacked_ms:.4f} ms at tps={best_tps} (plain {stacked_plain_ms:.4f}; "
-              f"bound {bwd_b['bound']['ms']:.4f} ms by {bwd_b['bound']['by']}, rasterize_bwd's: the "
-              f"same function of the same inputs; its mapping forms the sigma coefficients "
-              f"{coefficient_passes} times per pixel, {stacked_extra_flops} flop beyond that count, "
+        check(stacked_work["missed_groups"] == 0,
+              "the per-sample cull keeps every (row, strip, sample) group that composites")
+        rows_a_thread, _, coefficient_passes = stacked_layout(n_s, npix)
+        stacked_extra_flops = int(bw["live_row_pixels"] * FLOPS_PER_ROW_PIXEL
+                                  * (coefficient_passes - 1))
+        print(f"bwd_stacked: {stacked_ms:.4f} ms at tps={best_tps}, {rows_a_thread} rows a thread "
+              f"(plain {stacked_plain_ms:.4f}; bound {bwd_b['bound']['ms']:.4f} ms by "
+              f"{bwd_b['bound']['by']}, rasterize_bwd's: the same function of the same inputs; "
+              f"its mapping forms the sigma coefficients {coefficient_passes:.3f} times per pixel, "
+              f"{stacked_extra_flops} flop beyond that count, "
               f"{stacked_extra_flops / fp32_peak * 1e3:.4f} ms at the peak rate)")
+        print(f"bwd_stacked's per-sample cull: {stacked_work['groups']} (row, strip, sample) groups "
+              f"with a live row, {stacked_work['kept_groups']} kept "
+              f"({stacked_work['kept_groups'] / max(stacked_work['groups'], 1):.4f}), "
+              f"{stacked_work['hit_groups']} composite (the forward's {work['hit_warp_samples']} "
+              f"compositing steps), {stacked_work['missed_groups']} culled that composite")
+        for kname, rep_ in probe_ptxas.items():
+            print(f"ptxas, {kname}: {rep_}")
         del bwd_args, fwd_args, blocks, sp, table, d_slots
 
     fit = fit_phase()
@@ -1180,8 +1204,10 @@ def main() -> int:
          "source": "splat_tpu_torch/ops/cuda/csrc/row_scatter.cu",
          "replaces": "scripts_dev/probe_kernel_gather.py:90",
          "launches": probe_launches["row_scatter"], "max_abs_err": errs["row_scatter"],
-         "ms": b["ms"], "plain_ms": b["plain_ms"], "bound_ms": b["bytes"] / hbm * 1e3,
-         "bound_by": "bytes", "library_ms": b["library_ms"]},
+         # the whole function, its plan made on the card; the sum given a plan; the plan
+         "ms": b["ms"], "kernel_ms": b["kernel_ms"], "plan_ms": b["plan_ms"],
+         "plan_launches": probe_launches["scatter_plan"], "plain_ms": b["plain_ms"],
+         "bound_ms": b["bytes"] / hbm * 1e3, "bound_by": "bytes", "library_ms": b["library_ms"]},
         {"name": "seg_dma", "route": "cuda", "source": "splat_tpu_torch/ops/cuda/csrc/seg_dma.cu",
          "replaces": "scripts_dev/probe_seg_dma.py:96", "launches": probe_launches["seg_dma"],
          "max_abs_err": errs["seg_dma"], "ms": dma_res["ms"], "plain_ms": dma_res["plain_ms"],
@@ -1200,7 +1226,9 @@ def main() -> int:
          "launches": probe_launches["bwd_stacked"], "max_abs_err": errs["bwd_stacked"],
          "ms": stacked_ms, "plain_ms": stacked_plain_ms,
          "bound_ms": bwd_b["bound"]["ms"], "bound_by": bwd_b["bound"]["by"],
-         "library_ms": None, "coefficient_passes": coefficient_passes},
+         "library_ms": None, "coefficient_passes": coefficient_passes,
+         "rows_a_thread": rows_a_thread, "kept_groups": stacked_work["kept_groups"],
+         "hit_groups": stacked_work["hit_groups"]},
     ]
     by_path["fit"] = fit["launches"]
     for kern in kernels:

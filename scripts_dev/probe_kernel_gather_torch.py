@@ -5,8 +5,9 @@ counterpart of `scripts_dev/probe_kernel_gather.py` at its shapes and seed.
     python3 scripts_dev/probe_kernel_gather_torch.py
 
 Question: how fast do `row_gather` (out[t, j] = table[idx[t, j]]) and
-`row_scatter` (acc[idx[t, j]] += g[t, j], in (t, j) order, no atomics) move
-64-byte rows, beside PyTorch's indexing and `index_add_`? A (100,008, 16)
+`row_scatter` (acc[idx[t, j]] += g[t, j], in (t, j) order, no atomics; its
+plan of the contributors' order made on the card too) move 64-byte rows,
+beside PyTorch's indexing and `index_add_`? A (100,008, 16)
 float32 table, 1024 x 512 int32 indices. Prints, for each kernel, whether it
 is right and the ms per call of the kernel, its plain version and the library
 call, with the card's name and power limit. Needs a CUDA device; exits
@@ -41,19 +42,30 @@ def make_inputs(dev, t=T, k=K, n=N, p=P, seed=0):
 
 def check(inp) -> dict:
     """{"row_gather": max|err| (0: it moves bits), "row_scatter": the largest
-    |kernel - float64 sum| over max|column|}; raises if either is wrong or
-    the scatter is not bitwise repeatable."""
+    |kernel - float64 sum|, "row_scatter_share": that over max|column|};
+    raises unless the gather is bitwise `table[idx]`, the plan kernels give
+    `scatter_plan_plain`'s stable sort bit for bit, and the scatter is
+    bitwise the sequential loop (`row_scatter_plain` on the CPU), with its
+    plan made in the same call or handed in, and within SCATTER_TOL of the
+    float64 sum."""
     from splat_tpu_torch.ops.cuda.row_gather import row_gather, row_gather_plain
-    from splat_tpu_torch.ops.cuda.row_scatter import row_scatter
+    from splat_tpu_torch.ops.cuda.row_scatter import (row_scatter, row_scatter_plain,
+                                                      scatter_plan, scatter_plan_plain)
 
     idx, table, g = inp["idx"], inp["table"], inp["g"]
     got = row_gather(table, idx, impl="cuda")
     if not torch.equal(got, row_gather_plain(table, idx)):
         raise RuntimeError("row_gather differs from table[idx]")
     n_rows, width = table.shape
+    plan = scatter_plan(idx, n_rows, impl="cuda")
+    want_plan = scatter_plan_plain(idx.cpu(), n_rows)
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(plan, want_plan)):
+        raise RuntimeError("scatter_plan kernels differ from the stable sort")
     acc = row_scatter(idx, g, n_rows, impl="cuda")
-    if not torch.equal(acc, row_scatter(idx, g, n_rows, impl="cuda")):
-        raise RuntimeError("row_scatter: two launches differ")
+    if not torch.equal(acc, row_scatter(idx, g, n_rows, impl="cuda", plan=plan)):
+        raise RuntimeError("row_scatter: a launch with the plan handed in differs")
+    if not torch.equal(acc.cpu(), row_scatter_plain(idx.cpu(), g.cpu(), n_rows)):
+        raise RuntimeError("row_scatter differs from the sequential loop")
     want = torch.zeros((n_rows, width), dtype=torch.float64, device=g.device).index_add_(
         0, idx.reshape(-1).long(), g.reshape(-1, width).double())
     err = (acc.double() - want).abs()
@@ -77,7 +89,7 @@ def bench(inp, runs=20, reps=10) -> dict:
     n_rows, width = table.shape
     flat = idx.reshape(-1)
     rows = flat.numel()
-    plan = scatter_plan(idx, n_rows)
+    plan = scatter_plan(idx, n_rows, impl="cuda")
     zeros = torch.zeros_like(table)
     distinct = int(torch.unique(flat).numel())
     return {
@@ -90,14 +102,17 @@ def bench(inp, runs=20, reps=10) -> dict:
             "bytes": (rows + distinct) * width * 4 + rows * 4,
         },
         "row_scatter": {
-            "ms": time_cuda(lambda: row_scatter(idx, g, n_rows, impl="cuda", plan=plan),
-                            runs, reps),
-            "with_sort_ms": time_cuda(lambda: row_scatter(idx, g, n_rows, impl="cuda"), runs, reps),
+            # the whole function: the plan kernels, then the sum
+            "ms": time_cuda(lambda: row_scatter(idx, g, n_rows, impl="cuda"), runs, reps),
+            "kernel_ms": time_cuda(lambda: row_scatter(idx, g, n_rows, impl="cuda", plan=plan),
+                                   runs, reps),
+            "plan_ms": time_cuda(lambda: scatter_plan(idx, n_rows, impl="cuda"), runs, reps),
             "plain_ms": time_cuda(lambda: row_scatter_plain(idx, g, n_rows), runs, reps),
             # float32 index_add_ on the card: atomics, in no fixed order
             "library_ms": time_cuda(
                 lambda: zeros.zero_().index_add_(0, flat, g.reshape(-1, width)), runs, reps),
-            "cold_ms": time_cuda_cold(
+            "cold_ms": time_cuda_cold(lambda: row_scatter(idx, g, n_rows, impl="cuda"), runs),
+            "kernel_cold_ms": time_cuda_cold(
                 lambda: row_scatter(idx, g, n_rows, impl="cuda", plan=plan), runs),
             "library_cold_ms": time_cuda_cold(
                 lambda: zeros.zero_().index_add_(0, flat, g.reshape(-1, width)), runs),
@@ -114,18 +129,19 @@ def main() -> int:
 
     inp = make_inputs(torch.device("cuda"))
     errs = check(inp)
-    print(f"A gather correct: True (bitwise); B scatter correct: True "
-          f"({errs['row_scatter_share']:.3g} of max|column|, two launches bitwise equal)")
+    print(f"A gather correct: True (bitwise); B scatter correct: True (plan bitwise the "
+          f"stable sort, sums bitwise the sequential loop, {errs['row_scatter_share']:.3g} of "
+          f"max|column| from the float64 sum)")
     res = bench(inp)
     a, b = res["row_gather"], res["row_scatter"]
     print(f"A row_gather {T}x{K} rows of {P} floats: {a['ms']:.4f} ms/call "
           f"(plain table[idx] {a['plain_ms']:.4f}, index_select {a['library_ms']:.4f}; "
           f"cold cache {a['cold_ms']:.4f}, index_select {a['library_cold_ms']:.4f}; "
           f"{a['bytes']} bytes)")
-    print(f"B row_scatter: {b['ms']:.4f} ms/call, {b['with_sort_ms']:.4f} with the sort "
-          f"(plain index_add_ {b['plain_ms']:.4f}, index_add_ in place {b['library_ms']:.4f}; "
-          f"cold cache {b['cold_ms']:.4f}, index_add_ {b['library_cold_ms']:.4f}; "
-          f"{b['bytes']} bytes)")
+    print(f"B row_scatter: {b['ms']:.4f} ms/call with its plan (plan {b['plan_ms']:.4f}, sum "
+          f"given the plan {b['kernel_ms']:.4f}; plain index_add_ {b['plain_ms']:.4f}, "
+          f"index_add_ in place {b['library_ms']:.4f}; cold cache {b['cold_ms']:.4f}, sum "
+          f"{b['kernel_cold_ms']:.4f}, index_add_ {b['library_cold_ms']:.4f}; {b['bytes']} bytes)")
     print(nvidia_smi("name,power.limit"))
     return 0
 

@@ -526,12 +526,18 @@ class Trainer:
     def render_eval(self, idx: int) -> torch.Tensor:
         """Eval camera idx rendered with its learned corrections: the
         gamma-encoded (H, W, 3) image clipped to [0, 1] (gamma 1 renders are
-        unbounded above and would corrupt the SSIM statistics)."""
+        unbounded above and would corrupt the SSIM statistics).
+
+        The eval background draws nothing: a "random" background has no eval
+        colour (the JAX trainer's eval render passes no key and refuses it),
+        and drawing one would move the training stream's generator."""
         cfg = self.model_config
+        if cfg.background_color == "random":
+            raise ValueError("render_eval: background_color='random' has no eval background; "
+                             "evaluate with 'black', 'white' or 'auto'")
         out = sf.render_camera(self.params, self.eval_cams[idx], cfg,
                                sf.active_sh_degree(cfg, self.step),
-                               sf.background_color(self.params, cfg, self._bg_generator),
-                               is_eval_camera=True)
+                               sf.background_color(self.params, cfg), is_eval_camera=True)
         return torch.clamp(sf.gamma_encode(out.rgb, cfg), 0.0, 1.0)
 
     @torch.no_grad()

@@ -7,11 +7,13 @@ forward output and its cotangent (T, S, NOUT, npix), in the probe's
 formulation: every per-pixel quantity is a column of S * npix stacked rows
 (row s * npix + p), one early-stop test covers all of them, and the per-slot
 sums over samples and pixels are one reduction over all stacked rows. On CUDA
-tensors it launches `csrc/bwd_stacked.cu` (one thread per stacked row, `tps`
-tiles per block in turn, S a run-time value; each row's twelve terms are
-formed about the slot's own mean and added directly); on CPU tensors it runs
-`bwd_stacked_plain`, which takes the reduction as the probe does, through the
-tile-local pixel basis {1, px, py, px^2, px py, py^2} tiled S times, and
+tensors it launches `csrc/bwd_stacked.cu`: every thread owns the same number
+of stacked rows (`stacked_layout`), a warp one sample's 32 pixels per row it
+owns, `tps` tiles per block in turn; a warp skips a slot's (sample, strip)
+group that `sample_hit_mask` clears, and each row's twelve terms are formed
+about the slot's own mean and added directly. On CPU tensors it runs
+`bwd_stacked_plain`, which takes the reduction as the probe does, through
+the tile-local pixel basis {1, px, py, px^2, px py, py^2} tiled S times, and
 assembles the twelve gradients from those moments and the slot's tile-local
 mean, conic and pixel velocity. No training path calls it: like its TPU
 original it is a probe of which mapping wins
@@ -20,6 +22,7 @@ original it is a probe of which mapping wins
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -27,19 +30,48 @@ from ..reference import MAX_ALPHA, T_EPS
 from ..tiling import tile_wh
 from . import build
 from .rasterize_kernels import (LOG_MAX_ALPHA, LOG_THRESH, NOUT, WARP, _check_inputs,
-                                _tile_grid, _use_kernel)
+                                _tile_grid, _use_kernel, sample_hit_mask)
 
 MAX_THREADS = 1024     # the kernel's block size limit
-MAX_ROWS = 4           # stacked rows one thread may own
+MAX_ROWS = 4           # stacked rows a thread may own (the kernel's instantiations)
 NEG_BIG = -1e30        # the log opacity of a slot past the tile's count
 # the plain version's working set: slots per chunk, elements per plane
 PLAIN_CHUNK = 64
 PLAIN_PLANE_ELEMS = 1 << 24
 
 
+class StackedLayout(NamedTuple):
+    rows: int              # stacked rows a thread owns
+    threads: int           # threads a block
+    coefficient_passes: float   # times a pixel's sigma coefficients are formed
+
+
+def stacked_layout(n_samples: int, npix: int) -> StackedLayout:
+    """The kernel's layout for S samples and npix pixels a tile: the tile's
+    S * npix / 32 groups of 32 stacked rows spread evenly over the block,
+    the least rows a thread (1 to 4) that divide them into at most 16 warps,
+    else into at most 32 (a block of <= 16 warps leaves room for two or
+    three an SM). Groups are strip-major (strip k, sample s is group
+    k * S + s) and warp w owns groups w R .. w R + R - 1, so a thread forms
+    the sigma coefficients once per distinct strip of its groups:
+    `coefficient_passes` of them a pixel. Raises for a tile the kernel does
+    not take."""
+    groups = n_samples * npix // WARP
+    rows = next((r for most in (MAX_THREADS // WARP // 2, MAX_THREADS // WARP)
+                 for r in range(1, MAX_ROWS + 1) if groups % r == 0 and groups // r <= most), 0)
+    if npix % WARP or not rows:
+        raise ValueError(f"bwd_stacked kernel: {npix}-pixel tiles at S = {n_samples} make "
+                         f"{n_samples * npix / WARP:g} groups of {WARP} stacked rows; no count of "
+                         f"1 to {MAX_ROWS} rows a thread divides them into at most "
+                         f"{MAX_THREADS // WARP} warps")
+    strip = [g // n_samples for g in range(groups)]
+    passes = sum(len(set(strip[w:w + rows])) for w in range(0, groups, rows))
+    return StackedLayout(rows, n_samples * npix // rows, passes / (npix // WARP))
+
+
 def bwd_stacked_plain(params: torch.Tensor, counts: torch.Tensor, scalars: torch.Tensor,
                       fwd_out: torch.Tensor, g_out: torch.Tensor, tile_size, tiles_x: int,
-                      img_h: int) -> torch.Tensor:
+                      img_h: int, count_work: bool = False):
     """Plain PyTorch version in the stacked formulation: d_params (T, K, 16).
 
     Slots are taken `PLAIN_CHUNK` at a time and tiles as many at a time as keep
@@ -53,7 +85,14 @@ def bwd_stacked_plain(params: torch.Tensor, counts: torch.Tensor, scalars: torch
     over those moments cancels (in float32 it costs the conic columns up to
     4e-5 of their max on a 96 x 64 test scene), so the products and the
     assembly are taken in float64 and rounded once. A tile group stops after
-    the chunk in which every stacked row's T fell to T_EPS."""
+    the chunk in which every stacked row's T fell to T_EPS.
+
+    count_work=True also returns the kernel's per-sample cull on these inputs,
+    by (slot, group of 32 stacked rows: one sample's pixel strip): `groups`,
+    those with a row still live (T > T_EPS; the kernel's unit of work);
+    `kept_groups`, those of them `sample_hit_mask` keeps; `hit_groups`, those
+    where some row composites; `missed_groups`, hit groups the mask clears
+    (0: the cull is sound)."""
     n_tiles, k, width = params.shape
     dev = params.device
     n_samples = scalars.shape[0] - 2
@@ -65,6 +104,10 @@ def bwd_stacked_plain(params: torch.Tensor, counts: torch.Tensor, scalars: torch
     phi6 = phi6.repeat(n_samples, 1).double()                     # (sp, 6)
     n = torch.clamp(counts.long(), max=k)
     d_params = torch.zeros((n_tiles, k, width), dtype=torch.float32, device=dev)
+    work = {key: 0 for key in ("groups", "kept_groups", "hit_groups", "missed_groups")}
+    if count_work:
+        kept_all = sample_hit_mask(params, counts, scalars, tile_size, tiles_x, img_h)
+        kept_all = kept_all.reshape(n_tiles, k, sp // WARP)     # group s * strips + strip
     chunk = PLAIN_CHUNK
     step = max(1, PLAIN_PLANE_ELEMS // (sp * chunk))
     for t0 in range(0, n_tiles, step):
@@ -108,6 +151,14 @@ def bwd_stacked_plain(params: torch.Tensor, counts: torch.Tensor, scalars: torch
             for i in range(nc):      # the recurrence, as the forward runs it
                 a_i = alpha[:, :, i]
                 active = T > T_EPS
+                if count_work:
+                    live_g = active.reshape(gt, -1, WARP).any(dim=2)            # (tiles, groups)
+                    hit_g = (active & mask[:, :, i]).reshape(gt, -1, WARP).any(dim=2)
+                    kept_g = kept_all[sl, base + i]
+                    work["groups"] += int(live_g.sum())
+                    work["kept_groups"] += int((live_g & kept_g).sum())
+                    work["hit_groups"] += int(hit_g.sum())
+                    work["missed_groups"] += int((hit_g & ~kept_g).sum())
                 w[:, :, i] = torch.where(active, T * a_i, 0.0)
                 contrib[:, :, i] = w[:, :, i] * v[:, :, i]
                 prefix = prefix + contrib[:, :, i]
@@ -143,6 +194,8 @@ def bwd_stacked_plain(params: torch.Tensor, counts: torch.Tensor, scalars: torch
             d_params[sl, base:base + nc, :12] = grads.transpose(1, 2).float()
             if not bool((T > T_EPS).any()):
                 break
+    if count_work:
+        return d_params, work
     return d_params
 
 
@@ -151,7 +204,7 @@ def bwd_stacked(params: torch.Tensor, counts: torch.Tensor, scalars: torch.Tenso
                 img_h: int, tps: int = 1, impl: str = "auto") -> torch.Tensor:
     """d_params (T, K, 16), as `rasterize_bwd` and from the same arguments
     (`scalars` = [rs_time, row_offset, eps_0..eps_{S-1}]); tps: tiles a thread
-    block works through in turn.
+    block works through in turn (the sums do not depend on it).
 
     impl: "auto" (kernel on CUDA tensors, plain version on CPU tensors),
     "torch" (plain version on any device) or "cuda" (kernel; raises on CPU)."""
@@ -169,23 +222,19 @@ def bwd_stacked(params: torch.Tensor, counts: torch.Tensor, scalars: torch.Tenso
                 or not t.is_contiguous()):
             raise ValueError(f"bwd_stacked wants a contiguous float32 {name} {want} on "
                              f"{params.device}, got {tuple(t.shape)} {t.dtype} {t.device}")
-    threads = min(n_samples * npix, MAX_THREADS)
-    if npix % WARP or threads % npix or n_samples * npix > MAX_ROWS * threads:
-        raise ValueError(f"bwd_stacked kernel wants tiles of whole warps whose pixel count "
-                         f"divides its {threads}-thread block, and at most {MAX_ROWS} stacked "
-                         f"rows per thread: got {sw}x{sh} tiles, S = {n_samples}")
+    rows = stacked_layout(n_samples, npix).rows
     if tps < 1:
         raise ValueError(f"bwd_stacked wants tps >= 1, got {tps}")
     d_params = torch.empty_like(params)
     fn = build.entry("bwd_stacked", "bwd_stacked_f32",
                      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(params.device):
         stream = torch.cuda.current_stream(params.device).cuda_stream
         bwd_stacked.launches += 1
         build.check(fn(params.data_ptr(), counts.data_ptr(), scalars.data_ptr(),
                        fwd_out.data_ptr(), g_out.data_ptr(), d_params.data_ptr(),
-                       n_tiles, k, sw, sh, tiles_x, float(img_h), n_samples, tps, stream),
+                       n_tiles, k, sw, sh, tiles_x, float(img_h), n_samples, tps, rows, stream),
                     f"bwd_stacked(tps={tps})")
     return d_params
 

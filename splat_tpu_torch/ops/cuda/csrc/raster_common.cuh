@@ -1,7 +1,10 @@
-// Shared by rasterize_fwd.cu and rasterize_bwd.cu: the recurrence's
-// constants, the double-buffered asynchronous staging of a tile's rows, and
-// the per-row pass that forms the values every pixel shares (the tile-local
-// mean, the sigma coefficient C) and the exact per-warp cull mask.
+// Shared by rasterize_fwd.cu, rasterize_bwd.cu and bwd_stacked.cu: the
+// recurrence's constants, the double-buffered asynchronous staging of a
+// tile's rows, the per-row pass that forms the values every pixel shares (the
+// tile-local mean, the sigma coefficient C) and the exact per-warp cull mask,
+// and the backward's per-slot warp sum (a 16-shuffle transpose-reduce); and,
+// for them and row_scatter.cu, the warp constants and the opt-in to more
+// dynamic shared memory.
 //
 // The cull. A warp covers 32 consecutive pixels of the tile (2 rows of 16 in
 // a 16x16 or 16x8 tile). Pixel p composites row g at time t only if
@@ -9,8 +12,10 @@
 //     sigma(t) = 1/2 d^T [[ca, cb], [cb, cc]] d,  d = (px, py) - (mx, my) - pv t,
 // so only inside the ellipse sigma <= tau = lo_hi - LOG_THRESH, whose half
 // widths are sqrt(2 tau cc / det) in x and sqrt(2 tau ca / det) in y. Swept
-// over the tile's least and greatest sample time, it gives a box; a warp
-// whose pixel box misses it skips the row. The test is conservative for the
+// over the least and greatest time of a set of samples over the tile's pixel
+// rows (all S samples for the compositors, one sample for each of
+// bwd_stacked's per-sample masks), it gives a box; a warp whose pixel box
+// misses it skips the row. The test is conservative for the
 // float32 values the kernels compute (never clears a bit where a pair
 // composites), so the outputs are bitwise those of the unculled recurrence:
 //   - tau is raised by 2^-13 plus 2^-18 (3.8e-6) of the magnitude of
@@ -61,9 +66,12 @@ struct Tile {
 
 // t = eps_s + rs ((py + ty + row_offset) / H - 1/2), formed as the kernels
 // form each pixel's: every rounding step is monotone in py and eps_s, so the
-// extremes are at the first and last pixel row and the extreme eps.
+// extremes are at the first and last pixel row and the extreme eps of the
+// samples [s_begin, s_end). A narrower sample set gives a time range inside
+// the wider one's, and every step of warp_mask is monotone in it, so its box
+// lies inside the wider one's.
 __device__ __forceinline__ Tile make_tile(int t, int npix, int tile_w, int tiles_x, float img_h,
-                                          const float* scalars, int n_samples) {
+                                          const float* scalars, int s_begin, int s_end) {
     Tile tl;
     const int tile_h = npix / tile_w;
     tl.tx = static_cast<float>((t % tiles_x) * tile_w);
@@ -75,8 +83,8 @@ __device__ __forceinline__ Tile make_tile(int t, int npix, int tile_w, int tiles
     const float row_off = scalars[1];
     const float t_first = rs * ((0.5f + tl.ty + row_off) / img_h - 0.5f);
     const float t_last = rs * ((static_cast<float>(tile_h - 1) + 0.5f + tl.ty + row_off) / img_h - 0.5f);
-    float e_lo = scalars[2], e_hi = scalars[2];
-    for (int s = 1; s < n_samples; ++s) {
+    float e_lo = scalars[2 + s_begin], e_hi = scalars[2 + s_begin];
+    for (int s = s_begin + 1; s < s_end; ++s) {
         e_lo = fminf(e_lo, scalars[2 + s]);
         e_hi = fmaxf(e_hi, scalars[2 + s]);
     }
@@ -138,13 +146,16 @@ __device__ __forceinline__ unsigned warp_mask(float4 r0, float4 r1, float4 r2, f
 }
 
 // Shared memory of a block: two buffers of BATCH staged rows, per row of the
-// current batch its shared values and its cull mask, and the tile (kept here
-// rather than in every thread's registers: only the per-row pass reads it).
+// current batch its shared values and its NT cull masks, and the NT tiles the
+// masks are taken over (kept here rather than in every thread's registers:
+// only the per-row pass reads them). The compositors have NT = 1 (every
+// sample); bwd_stacked NT = S, one tile and mask per sample.
+template <int NT = 1>
 struct Staging {
     float4 rows[2][BATCH * P4];
     float4 rowv[BATCH];         // tile-local mean x, y; C; lo_hi
-    unsigned mask[BATCH];
-    Tile tile;
+    unsigned mask[BATCH][NT];
+    Tile tile[NT];
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -165,22 +176,71 @@ __device__ __forceinline__ void stage_wait() {
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// One thread per row of the landed batch: the values every pixel shares
-// (formed as each pixel formed them before, so they round alike) and the
-// row's cull mask.
-__device__ __forceinline__ void row_pass(Staging& st, int buf, int nb, int p, int nthreads) {
-    if (p >= nb) return;
-    const Tile tl = st.tile;
-    for (int j = p; j < nb; j += nthreads) {
+// One thread per (row, tile) of the landed batch: the values every pixel
+// shares (formed as each pixel formed them before, so they round alike; by
+// the row's first item) and the row's cull mask over each tile.
+template <int NT>
+__device__ __forceinline__ void row_pass(Staging<NT>& st, int buf, int nb, int p, int nthreads) {
+    for (int item = p; item < nb * NT; item += nthreads) {
+        const int j = item / NT;
+        const int s = item - j * NT;
+        const Tile tl = st.tile[s];
         const float4* g = st.rows[buf] + j * P4;
         const float4 r0 = g[0], r1 = g[1], r2 = g[2], r3 = g[3];
         const float mx = r0.x - tl.tx;
         const float my = r0.y - tl.ty;
-        const float ca = r0.z, cb = r0.w, cc = r1.x, pvx = r2.z, pvy = r2.w;
-        const float C = 0.5f * (ca * pvx * pvx + cc * pvy * pvy) + cb * pvx * pvy;
-        st.rowv[j] = make_float4(mx, my, C, r3.x);
-        st.mask[j] = warp_mask(r0, r1, r2, r3, mx, my, tl);
+        if (s == 0) {
+            const float ca = r0.z, cb = r0.w, cc = r1.x, pvx = r2.z, pvy = r2.w;
+            const float C = 0.5f * (ca * pvx * pvx + cc * pvy * pvy) + cb * pvx * pvy;
+            st.rowv[j] = make_float4(mx, my, C, r3.x);
+        }
+        st.mask[j][s] = warp_mask(r0, r1, r2, r3, mx, my, tl);
     }
+}
+
+constexpr int NACC = 12;       // the backward's per-slot sums
+constexpr int NRED = 16;       // NACC padded to a power of two for the transpose-reduce
+
+// One step of the transpose-reduce: lanes whose bit 2 * HALF is clear keep
+// values [0, HALF) and send [HALF, 2 HALF) to their partner, the others the
+// reverse; each adds what it receives to what it keeps. HALF shuffles.
+template <int HALF>
+__device__ __forceinline__ void halve(float (&v)[NRED], int lane) {
+    const bool upper = lane & (2 * HALF);
+#pragma unroll
+    for (int i = 0; i < HALF; ++i) {
+        const float keep = upper ? v[i + HALF] : v[i];
+        const float send = upper ? v[i] : v[i + HALF];
+        v[i] = keep + __shfl_xor_sync(FULL, send, 2 * HALF);
+    }
+}
+
+// Sum v over the warp's 32 lanes, value by value: on return lane l holds the
+// sum of value (l >> 1) & 15 (both lanes of a pair hold it). 8 + 4 + 2 + 1 + 1
+// = 16 shuffles instead of a butterfly's 5 per value (60 for the twelve).
+__device__ __forceinline__ float transpose_reduce(float (&v)[NRED], int lane) {
+    halve<8>(v, lane);
+    halve<4>(v, lane);
+    halve<2>(v, lane);
+    halve<1>(v, lane);
+    return v[0] + __shfl_xor_sync(FULL, v[0], 1);
+}
+
+// Raise the dynamic shared memory `Kernel` may take beside its static to
+// `bytes` on the current device, once a process per device and size (the
+// default keeps their sum under 48 KiB; the call costs host time on every
+// back-to-back launch otherwise).
+template <auto Kernel>   // one record of what was allowed per kernel
+cudaError_t allow_dynamic_smem(int bytes) {
+    constexpr int MAX_DEVICES = 64;
+    static int allowed[MAX_DEVICES] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < MAX_DEVICES && allowed[dev] >= bytes) return cudaSuccess;
+    err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess && dev < MAX_DEVICES) allowed[dev] = bytes;
+    return err;
 }
 
 }  // namespace raster

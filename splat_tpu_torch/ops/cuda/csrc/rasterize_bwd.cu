@@ -41,8 +41,9 @@
 // terms (rgb and depth from w, sum d_sigma, and the d_sigma-weighted moments
 // dx, dy, t dx, t dy, dx^2, dy^2, dx dy with dx = dx0 - pvx t) over the
 // samples in registers. The per-slot sum over the warp's pixels is a
-// transpose-reduce (recursive halving): the twelve sums padded to 16; at
-// xor 16 each half of the warp keeps 8 of them and sends the other 8, at
+// transpose-reduce (recursive halving; `transpose_reduce` in
+// raster_common.cuh, shared with bwd_stacked.cu): the twelve sums padded to
+// 16; at xor 16 each half of the warp keeps 8 of them and sends the other 8, at
 // xor 8 keeps 4 and sends 4, then 2, 1, and a last xor 1 add: 16 shuffles per
 // (slot, warp) instead of a 60-shuffle butterfly, and even lane 2i ends with
 // sum i, which it writes to its warp's partial. The keep / send choice is a
@@ -68,39 +69,12 @@ namespace {
 
 using namespace raster;
 
-constexpr int NACC = 12;       // per-slot sums reduced over pixels
-constexpr int NRED = 16;       // NACC padded to a power of two for the transpose-reduce
 constexpr int PSTRIDE = 13;    // floats per partial (odd: no bank conflicts in the combine)
 constexpr float LOG_MAX_ALPHA = -0.0010005003335835335f;  // log(0.999)
 
 // Blocks of 256 threads an SM should hold: 3 (85 registers a thread) up to
 // S = 5, the main path's S; 2 above.
 constexpr int min_blocks(int S) { return S <= 5 ? 3 : 2; }
-
-// One step of the transpose-reduce: lanes whose bit 2 * HALF is clear keep
-// values [0, HALF) and send [HALF, 2 HALF) to their partner, the others the
-// reverse; each adds what it receives to what it keeps. HALF shuffles.
-template <int HALF>
-__device__ __forceinline__ void halve(float (&v)[NRED], int lane) {
-    const bool upper = lane & (2 * HALF);
-#pragma unroll
-    for (int i = 0; i < HALF; ++i) {
-        const float keep = upper ? v[i + HALF] : v[i];
-        const float send = upper ? v[i] : v[i + HALF];
-        v[i] = keep + __shfl_xor_sync(FULL, send, 2 * HALF);
-    }
-}
-
-// Sum v over the warp's 32 lanes, value by value: on return lane l holds the
-// sum of value (l >> 1) & 15 (both lanes of a pair hold it). 8 + 4 + 2 + 1 + 1
-// = 16 shuffles.
-__device__ __forceinline__ float transpose_reduce(float (&v)[NRED], int lane) {
-    halve<8>(v, lane);
-    halve<4>(v, lane);
-    halve<2>(v, lane);
-    halve<1>(v, lane);
-    return v[0] + __shfl_xor_sync(FULL, v[0], 1);
-}
 
 template <int S>
 __global__ void __launch_bounds__(MAX_THREADS, min_blocks(S)) rasterize_bwd_kernel(
@@ -111,7 +85,7 @@ __global__ void __launch_bounds__(MAX_THREADS, min_blocks(S)) rasterize_bwd_kern
     const float* __restrict__ g_out,    // (T, S, NOUT, npix)
     float* __restrict__ d_params,       // (T, K, P)
     int k, int tile_w, int tiles_x, float img_h) {
-    __shared__ Staging st;
+    __shared__ Staging<> st;
     __shared__ float partial[MAX_WARPS][BATCH][PSTRIDE];
     __shared__ unsigned wrote[BATCH];
     const int t = blockIdx.x;
@@ -119,7 +93,7 @@ __global__ void __launch_bounds__(MAX_THREADS, min_blocks(S)) rasterize_bwd_kern
     const int npix = blockDim.x;
     const int lane = p % WARP;
     const int warp = p / WARP;
-    if (p == 0) st.tile = make_tile(t, npix, tile_w, tiles_x, img_h, scalars, S);
+    if (p == 0) st.tile[0] = make_tile(t, npix, tile_w, tiles_x, img_h, scalars, 0, S);
     const float ty = static_cast<float>((t / tiles_x) * (npix / tile_w));
     const float px = static_cast<float>(p % tile_w) + 0.5f;
     const float py = static_cast<float>(p / tile_w) + 0.5f;
@@ -166,7 +140,7 @@ __global__ void __launch_bounds__(MAX_THREADS, min_blocks(S)) rasterize_bwd_kern
         for (int j = p; j < nb; j += npix) wrote[j] = 0u;
         __syncthreads();
         for (int j = 0; warp_live && j < nb; ++j) {
-            if (!((st.mask[j] >> warp) & 1u)) continue;   // warp-uniform
+            if (!((st.mask[j][0] >> warp) & 1u)) continue;   // warp-uniform
             const float4* g = st.rows[buf] + j * P4;
             const float4 g0 = g[0], g1 = g[1], g2 = g[2];
             const float4 rv = st.rowv[j];

@@ -61,12 +61,12 @@ __global__ void __launch_bounds__(MAX_THREADS, min_blocks(S)) rasterize_fwd_kern
     const float* __restrict__ scalars,  // [rs, row_offset, eps_0..eps_{S-1}]
     float* __restrict__ out,            // (T, S, NOUT, npix)
     int k, int tile_w, int tiles_x, float img_h) {
-    __shared__ Staging st;
+    __shared__ Staging<> st;
     const int t = blockIdx.x;
     const int p = threadIdx.x;
     const int npix = blockDim.x;
     const int warp = p / WARP;
-    if (p == 0) st.tile = make_tile(t, npix, tile_w, tiles_x, img_h, scalars, S);
+    if (p == 0) st.tile[0] = make_tile(t, npix, tile_w, tiles_x, img_h, scalars, 0, S);
     const float ty = static_cast<float>((t / tiles_x) * (npix / tile_w));
     const float px = static_cast<float>(p % tile_w) + 0.5f;
     const float py = static_cast<float>(p / tile_w) + 0.5f;
@@ -102,7 +102,7 @@ __global__ void __launch_bounds__(MAX_THREADS, min_blocks(S)) rasterize_fwd_kern
         __syncthreads();
         if (warp_live) {
             for (int j = 0; j < nb; ++j) {
-                if (!((st.mask[j] >> warp) & 1u)) continue;   // warp-uniform
+                if (!((st.mask[j][0] >> warp) & 1u)) continue;   // warp-uniform
                 const float4* g = st.rows[buf] + j * P4;
                 const float4 g0 = g[0], g1 = g[1], g2 = g[2];
                 const float4 rv = st.rowv[j];

@@ -97,30 +97,29 @@ def _row_alpha(g, tx, ty, px, py, ts, T, in_count):
     return dx0, dy0, alpha, lo, live
 
 
-def warp_hit_mask(params: torch.Tensor, counts: torch.Tensor, scalars: torch.Tensor,
-                  tile_size, tiles_x: int, img_h: int) -> torch.Tensor:
-    """(T, K, n_warps) bool: whether slot k can reach any pixel of warp w (32
-    consecutive pixels of the tile) at any sample time of the tile. The
-    kernels' per-row cull (`warp_mask` in csrc/raster_common.cuh), operation
-    for operation in float32: the ellipse sigma <= lo_hi - log(1/255), with
-    rounding slack, swept over the tile's least and greatest sample time and
-    grown by a margin, against each warp's pixel box. Never False where the
-    recurrence composites a pair; False for slots past the tile's count."""
-    n_tiles, k, _ = params.shape
+def _tile_times(n_tiles, scalars, tile_size, tiles_x, img_h, dev):
+    """Tile origins (T, 1) and each tile's first and last pixel row's
+    rolling-shutter time (T, 1), as `make_tile` forms them."""
     sw, sh = tile_wh(tile_size)
-    npix = sw * sh
-    dev = params.device
     f32 = torch.float32
     tid = torch.arange(n_tiles, device=dev)
     tx = ((tid % tiles_x) * sw).to(f32)[:, None]                 # (T, 1)
     ty = ((tid // tiles_x) * sh).to(f32)[:, None]
     img_h_t = torch.full((), float(img_h), dtype=f32, device=dev)
-    rs, row_off, eps = scalars[0], scalars[1], scalars[2:]
+    rs, row_off = scalars[0], scalars[1]
     t_first = rs * ((0.5 + ty + row_off) / img_h_t - 0.5)
     t_last = rs * (((sh - 1) + 0.5 + ty + row_off) / img_h_t - 0.5)
-    t_lo = eps.min() + torch.minimum(t_first, t_last)            # (T, 1)
-    t_hi = eps.max() + torch.maximum(t_first, t_last)
+    return tx, ty, t_first, t_last
 
+
+def _swept_box_mask(params, counts, tx, ty, t_lo, t_hi, tile_size):
+    """(T, K, n_warps) bool: `warp_mask` of csrc/raster_common.cuh for the
+    time range [t_lo, t_hi] (T, 1), operation for operation in float32."""
+    n_tiles, k, _ = params.shape
+    sw, sh = tile_wh(tile_size)
+    npix = sw * sh
+    dev = params.device
+    f32 = torch.float32
     mx = params[..., 0] - tx                                     # (T, K)
     my = params[..., 1] - ty
     ca, cb, cc = params[..., 2], params[..., 3], params[..., 4]
@@ -160,6 +159,39 @@ def warp_hit_mask(params: torch.Tensor, counts: torch.Tensor, scalars: torch.Ten
     mask = keep_all | (~culled[..., None] & ~miss)
     in_count = torch.arange(k, device=dev) < torch.clamp(counts.long(), max=k)[:, None]
     return mask & in_count[..., None]
+
+
+def warp_hit_mask(params: torch.Tensor, counts: torch.Tensor, scalars: torch.Tensor,
+                  tile_size, tiles_x: int, img_h: int) -> torch.Tensor:
+    """(T, K, n_warps) bool: whether slot k can reach any pixel of warp w (32
+    consecutive pixels of the tile) at any sample time of the tile. The
+    kernels' per-row cull (`warp_mask` in csrc/raster_common.cuh), operation
+    for operation in float32: the ellipse sigma <= lo_hi - log(1/255), with
+    rounding slack, swept over the tile's least and greatest sample time and
+    grown by a margin, against each warp's pixel box. Never False where the
+    recurrence composites a pair; False for slots past the tile's count."""
+    tx, ty, t_first, t_last = _tile_times(params.shape[0], scalars, tile_size, tiles_x, img_h,
+                                          params.device)
+    eps = scalars[2:]
+    t_lo = eps.min() + torch.minimum(t_first, t_last)            # (T, 1)
+    t_hi = eps.max() + torch.maximum(t_first, t_last)
+    return _swept_box_mask(params, counts, tx, ty, t_lo, t_hi, tile_size)
+
+
+def sample_hit_mask(params: torch.Tensor, counts: torch.Tensor, scalars: torch.Tensor,
+                    tile_size, tiles_x: int, img_h: int) -> torch.Tensor:
+    """(T, K, S, n_warps) bool: `warp_hit_mask` with the box swept over one
+    sample's times only (eps_s over the tile's pixel rows), as `bwd_stacked`'s
+    per-row pass takes it for each sample (`make_tile` over samples
+    [s, s + 1)). Bit (s, w) clear: no pixel of warp w composites the slot at
+    sample s. Every bit it sets is set in `warp_hit_mask` (the narrower time
+    range gives a box inside the wider one's, rounding step by rounding
+    step)."""
+    tx, ty, t_first, t_last = _tile_times(params.shape[0], scalars, tile_size, tiles_x, img_h,
+                                          params.device)
+    lo, hi = torch.minimum(t_first, t_last), torch.maximum(t_first, t_last)
+    return torch.stack([_swept_box_mask(params, counts, tx, ty, e + lo, e + hi, tile_size)
+                        for e in scalars[2:]], dim=2)
 
 
 WORK_KEYS = ("live_pairs", "live_row_pixels", "live_rows", "hit_pairs", "warp_live_pairs",

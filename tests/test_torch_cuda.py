@@ -22,21 +22,27 @@ row's max over its columns (where a row's pixel sum cancels, the two
 summation orders differ by a few 1e-5 of the row's max). bwd_stacked is held
 to the same bounds against its own plain version (the stacked formulation,
 moment products in float64) and against the rasterize_bwd kernel (the same
-terms summed over other threads), is bitwise repeatable and does not depend
-on tps. Gradients of the
+terms summed over other threads) in each of its layouts (1 to 4 rows a
+thread, reached through the tiles and sample counts whose layout they are),
+is bitwise repeatable and does not depend on tps. Gradients of the
 kernel route against the
 plain route (impl="torch"):
 each leaf within 1e-3 * max|leaf gradient|; and the kernel route's
 gradients are bitwise repeatable (no float atomics anywhere).
 row_gather and both seg_dma variants move bits (exact). row_scatter adds each
 destination row's contributors in index order: bitwise repeatable, and within
-1e-5 of max|column| of a float64 sum rounded to float32. chunk_cumsum's "seq"
+1e-5 of max|column| of a float64 sum rounded to float32; bitwise the
+sequential loop (np.add.at), and its plan kernels bitwise the stable sort of
+`scatter_plan_plain`, on uniform, skewed, half-on-one-row and out-of-range
+indices. rasterize_bwd's output on seeded numpy inputs has the digest it had
+before its transpose-reduce moved into raster_common.cuh (exact). chunk_cumsum's "seq"
 variant adds in row order in float32 and its "warp" variant in another
 association: both within 1e-6 of max|plain| of the plain version on the CPU
 (a sequential walk that accumulates in float64), and within the JAX probe's
 own atol 1e-3 of the plain version on the card (a parallel scan).
 """
 import dataclasses
+import hashlib
 import importlib.util
 from pathlib import Path
 
@@ -51,10 +57,10 @@ from splat_tpu_torch.models.convert import cameras_from_numpy, params_from_numpy
 from splat_tpu_torch.ops import cuda as kcuda
 from splat_tpu_torch.ops import rasterize, tiling
 from splat_tpu_torch.ops.cuda import rasterize_kernels as rk
-from splat_tpu_torch.ops.cuda.bwd_stacked import bwd_stacked
+from splat_tpu_torch.ops.cuda.bwd_stacked import bwd_stacked, stacked_layout
 from splat_tpu_torch.ops.cuda.chunk_cumsum import chunk_cumsum, chunk_cumsum_plain
 from splat_tpu_torch.ops.cuda.row_gather import row_gather, row_gather_plain
-from splat_tpu_torch.ops.cuda.row_scatter import row_scatter, scatter_plan
+from splat_tpu_torch.ops.cuda.row_scatter import row_scatter, scatter_plan, scatter_plan_plain
 from splat_tpu_torch.ops.cuda.seg_copy import seg_copy, seg_copy_plain
 from splat_tpu_torch.ops.cuda.seg_dma import seg_dma
 
@@ -226,6 +232,38 @@ def test_bwd_stacked_matches_plain_and_rasterize_bwd_on_card(cuda_device, tile_s
         bwd_stacked(*(a.cpu() if torch.is_tensor(a) else a for a in args), impl="cuda")
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_size,n_samples,rows", [(8, 5, 1), ((16, 8), 5, 2), (16, 3, 2),
+                                                      (16, 6, 3), (16, 9, 3), (16, 5, 4),
+                                                      (16, 16, 4)])
+def test_bwd_stacked_rows_a_thread_on_card(cuda_device, tile_size, n_samples, rows):
+    """Each layout the kernel instantiates (rows a thread), through a tile and
+    sample count whose layout it is, within the same bounds of the plain
+    version, bitwise repeatable and the same for every tps."""
+    sw, sh = tiling.tile_wh(tile_size)
+    assert stacked_layout(n_samples, sw * sh).rows == rows
+    lists, sp, motion = _inputs(cuda_device, tile_size)
+    blocks = seg_copy(sp, lists.starts, K, impl="cuda")
+    eps = torch.linspace(-0.03, 0.03, n_samples, device=cuda_device)
+    tiles_x = tiling.num_tiles(IMG_W, IMG_H, tile_size)[0]
+    scalars = rk.scalar_vec(motion.rs_time, 0.0, eps, cuda_device)
+    fwd = rk.rasterize_fwd(blocks, lists.counts, motion.rs_time, tile_size, tiles_x, IMG_H,
+                           eps=eps, impl="cuda")
+    g_out = torch.randn(fwd.shape, generator=_seeded(cuda_device, 0), device=cuda_device)
+    args = (blocks, lists.counts, scalars, fwd, g_out, tile_size, tiles_x, IMG_H)
+    got = bwd_stacked(*args, tps=2, impl="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(got, bwd_stacked(*args, tps=1, impl="cuda"))
+    want = bwd_stacked(*args, impl="torch")
+    err = (got - want)[:, :, :rk.NPARAM - 1].abs()
+    ref = want[:, :, :rk.NPARAM - 1].abs()
+    for j in range(0, K, 64):
+        e, m = err[:, j:j + 64].amax(dim=(0, 1)), ref[:, j:j + 64].amax(dim=(0, 1))
+        assert (e <= 1e-5 * m).all(), (j, e, m)
+    e, m = err.amax(dim=2), ref.amax(dim=2)
+    assert (e <= 1e-3 * m).all(), (e / m).nan_to_num().max()
+
+
 def _train_grads(params, cams, cfg, gt):
     """Every trainable leaf's gradient and the probe's for one loss."""
     leaves = trainer.param_groups(params)
@@ -317,6 +355,88 @@ def test_row_scatter_matches_float64_sum_on_card(cuda_device, n_rows, idx_shape,
     loop = np.zeros((n_rows, width), np.float32)
     np.add.at(loop, idx.reshape(-1).cpu().numpy(), g.reshape(-1, width).cpu().numpy())
     assert np.array_equal(got.cpu().numpy(), loop)
+
+
+def _plan_indices(kind, n_rows, shape, seed=8):
+    """Seeded int32 indices: uniform; half of them on one row (a segment far
+    longer than a block); runs of 150 (segments of a few hundred, past the
+    rank-sorted length); Zipf-skewed; with negative and >= n_rows ones."""
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(shape))
+    if kind == "runs":
+        flat = (np.arange(n) // 150) % n_rows
+    elif kind == "skewed":
+        flat = (rng.zipf(1.3, size=n) - 1) % n_rows
+    else:
+        flat = rng.integers(0, n_rows, size=n)
+    if kind == "half_one_row":
+        flat[rng.permutation(n)[:n // 2]] = n_rows // 3
+    if kind == "out_of_range":
+        pick = rng.permutation(n)[:n // 5]
+        flat[pick] = rng.choice([-1, -7, -2**31, n_rows, n_rows + 3, 2**31 - 1], size=pick.size)
+    return flat.astype(np.int32).reshape(shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,n_rows,shape,width", [
+    ("uniform", 100_008, (1024, 512), 16), ("half_one_row", 100_008, (1024, 512), 16),
+    ("out_of_range", 5000, (70_001,), 13), ("uniform", 1, (3000,), 4),
+    ("runs", 200, (40_000,), 32), ("skewed", 97, (50_000,), 16),
+    ("out_of_range", 1, (4096,), 8)])
+def test_scatter_plan_kernels_and_row_scatter_are_the_sequential_loop_on_card(
+        cuda_device, kind, n_rows, shape, width):
+    """The plan kernels give `scatter_plan_plain`'s stable sort bit for bit,
+    and the sum is np.add.at's sequential loop bit for bit, with the plan made
+    here or handed in; out-of-range indices are dropped."""
+    idx_np = _plan_indices(kind, n_rows, shape)
+    idx = torch.tensor(idx_np, device=cuda_device)
+    before = (scatter_plan.launches, row_scatter.launches)
+    order, offsets = scatter_plan(idx, n_rows)
+    torch.cuda.synchronize()
+    assert scatter_plan.launches == before[0] + 1
+    want_order, want_offsets = scatter_plan_plain(idx.cpu(), n_rows)
+    assert torch.equal(offsets.cpu(), want_offsets)
+    assert torch.equal(order.cpu(), want_order)
+    g = torch.randn(shape + (width,), generator=_seeded(cuda_device, 9), device=cuda_device)
+    got = row_scatter(idx, g, n_rows, impl="cuda")
+    again = row_scatter(idx, g, n_rows, impl="cuda", plan=(order, offsets))
+    torch.cuda.synchronize()
+    assert row_scatter.launches == before[1] + 2 and scatter_plan.launches == before[0] + 2
+    assert torch.equal(got, again), "bitwise repeatable"
+    flat = idx_np.reshape(-1)
+    valid = (flat >= 0) & (flat < n_rows)
+    loop = np.zeros((n_rows, width), np.float32)
+    np.add.at(loop, flat[valid], g.reshape(-1, width).cpu().numpy()[valid])
+    assert np.array_equal(got.cpu().numpy(), loop)
+
+
+def _ab_script():
+    spec = importlib.util.spec_from_file_location(
+        "time_probe_kernels_torch",
+        Path(__file__).resolve().parents[1] / "scripts_dev" / "time_probe_kernels_torch.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# sha256 of rasterize_bwd's output on `time_probe_kernels_torch.bits_inputs`,
+# from the tree before the transpose-reduce moved into raster_common.cuh
+RASTERIZE_BWD_SHA256 = {
+    "16x16 S=5": "11d737159e62ebcbac71d44e23ea642035603a74f8af24e78daf37143fed65c3",
+    "16x8 S=16": "83e535829094c2ef7eddc350a6bd8d521de9f88687b441ce6400ae1ce0344cf8",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", sorted(RASTERIZE_BWD_SHA256))
+def test_rasterize_bwd_bits_unchanged_on_card(cuda_device, label):
+    """rasterize_bwd's output, on inputs made by numpy alone (the cull probe's
+    adversarial rows, a uniform forward output, a normal cotangent), has the
+    digest the kernel gave before it shared its reduction with bwd_stacked."""
+    args = _ab_script().bits_inputs(cuda_device, label)
+    got = rk.rasterize_bwd(*args, impl="cuda")
+    torch.cuda.synchronize()
+    assert hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest() == RASTERIZE_BWD_SHA256[label]
 
 
 @pytest.mark.cuda

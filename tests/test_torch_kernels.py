@@ -205,6 +205,78 @@ def test_warp_hit_mask_keeps_every_compositing_group(tile_size, n_samples, rs, n
     assert not mask[~in_count].any()
 
 
+@pytest.mark.parametrize("tile_size,n_samples,rs,nonfinite", [
+    (16, 1, -0.05, True), (16, 3, -0.05, False), ((16, 8), 5, 0.04, True),
+    (8, 5, -0.05, False), (16, 16, 0.04, True), ((16, 8), 16, -0.05, False),
+    (16, 5, 0.0, True)])
+def test_sample_hit_mask_keeps_every_compositing_group(tile_size, n_samples, rs, nonfinite,
+                                                       monkeypatch):
+    """bwd_stacked's per-sample cull on the adversarial rows of
+    test_warp_hit_mask_keeps_every_compositing_group: every (row, sample,
+    warp) group where the float32 condition composites some pixel of the
+    warp at that sample is kept, with T held at 1 and, through
+    `bwd_stacked_plain(count_work=True)`, on the stacked recurrence itself;
+    so by the box without its slack and margin; every bit it sets is set in
+    `warp_hit_mask` for the same pixels, and with S > 1 it culls groups that
+    mask keeps."""
+    from splat_tpu_torch.ops.cuda.bwd_stacked import bwd_stacked_plain
+
+    inp = _probe_cull().make_inputs(torch.device("cpu"), tile_size, n_samples, rs,
+                                    nonfinite=nonfinite)
+    p, counts, scalars = inp["params"], inp["counts"], inp["scalars"]
+    geo = (inp["tile_size"], inp["tiles_x"], inp["img_h"])
+    mask = trk.sample_hit_mask(p, counts, scalars, *geo)             # (T, K, S, n_warps)
+    whole = trk.warp_hit_mask(p, counts, scalars, *geo)
+    assert mask.shape == whole.shape[:2] + (n_samples,) + whole.shape[2:]
+    assert not (mask & ~whole[:, :, None]).any(), "a bit the exposure-wide mask clears"
+    with monkeypatch.context() as m:
+        for name in ("SIGMA_ABS_SLACK", "SIGMA_REL_SLACK", "DET_REL_SLACK", "BOX_MARGIN",
+                     "BOX_REL_MARGIN"):
+            m.setattr(trk, name, 0.0)
+        bare = trk.sample_hit_mask(p, counts, scalars, *geo)
+    assert not (bare & ~mask).any()
+    n_tiles, k, _ = p.shape
+    tx, ty, px, py, ts = trk._tile_grid(n_tiles, scalars, *geo, p.device)
+    n = torch.clamp(counts.long(), max=k)
+    ones = torch.ones((n_tiles, ts.shape[1], px.shape[0]))
+    for j in range(k):
+        _, _, _, _, live = trk._row_alpha(p[:, j, :, None, None], tx, ty, px, py, ts, ones,
+                                          (j < n)[:, None, None])
+        hit = trk._by_warp(live).sum(dim=3) > 0                       # (T, S, n_warps)
+        assert not (hit & ~bare[:, j]).any(), f"slot {j}: a hit group culled"
+    fwd = trk.rasterize_fwd_plain(p, counts, scalars, *geo)
+    g_out = torch.randn(fwd.shape, generator=torch.Generator().manual_seed(0))
+    _, work = bwd_stacked_plain(p, counts, scalars, fwd, g_out, *geo, count_work=True)
+    assert work["missed_groups"] == 0
+    assert 0 < work["hit_groups"] <= work["kept_groups"] < work["groups"]
+    if n_samples > 1:
+        assert mask.sum() < whole.sum() * n_samples, "one sample's sweep culls more"
+
+
+def test_sample_hit_mask_on_a_seeded_scene():
+    """The same soundness on a projected scene (a full tile that saturates,
+    so rows stop): bwd_stacked_plain's recurrence composites in no group the
+    per-sample mask clears, the mask lies inside warp_hit_mask's, and the
+    stacked plain version with its counts is the one without them."""
+    from splat_tpu_torch.ops.cuda.bwd_stacked import bwd_stacked_plain
+
+    blocks, counts = _blocks(8)
+    tiles_x = jtiling.num_tiles(IMG_W, IMG_H, 8)[0]
+    padded = torch.nn.functional.pad(torch.tensor(blocks), (0, trk.PARAM_STRIDE - trk.NPARAM))
+    counts_t = torch.tensor(counts, dtype=torch.int32)
+    scalars = trk.scalar_vec(0.04, 0.0, torch.linspace(-0.03, 0.03, 5), torch.device("cpu"))
+    geo = (8, tiles_x, IMG_H)
+    mask = trk.sample_hit_mask(padded, counts_t, scalars, *geo)
+    assert not (mask & ~trk.warp_hit_mask(padded, counts_t, scalars, *geo)[:, :, None]).any()
+    fwd = trk.rasterize_fwd_plain(padded, counts_t, scalars, *geo)
+    assert (fwd[:, :, 4] <= trk.T_EPS).any(), "some pixel must saturate"
+    g_out = torch.randn(fwd.shape, generator=torch.Generator().manual_seed(1))
+    got, work = bwd_stacked_plain(padded, counts_t, scalars, fwd, g_out, *geo, count_work=True)
+    assert torch.equal(got, bwd_stacked_plain(padded, counts_t, scalars, fwd, g_out, *geo))
+    assert work["missed_groups"] == 0
+    assert 0 < work["hit_groups"] <= work["kept_groups"] < work["groups"]
+
+
 def test_pack_param_table_matches_jax():
     proj, colors, opac, _ = _scene(8)
     want = np.asarray(j_pack(proj, colors, opac))

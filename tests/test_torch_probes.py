@@ -35,7 +35,7 @@ from test_torch_kernels import _blocks
 from splat_tpu.ops import tiling as jtiling
 from splat_tpu.ops.pallas.rasterize_kernels import rasterize_fwd_packed
 from splat_tpu_torch.ops.cuda import rasterize_kernels as trk
-from splat_tpu_torch.ops.cuda.bwd_stacked import bwd_stacked, bwd_stacked_plain
+from splat_tpu_torch.ops.cuda.bwd_stacked import bwd_stacked, bwd_stacked_plain, stacked_layout
 from splat_tpu_torch.ops.cuda.chunk_cumsum import chunk_cumsum, chunk_cumsum_plain
 from splat_tpu_torch.ops.cuda.row_gather import row_gather, row_gather_plain
 from splat_tpu_torch.ops.cuda.row_scatter import row_scatter, row_scatter_plain, scatter_plan
@@ -115,6 +115,55 @@ def test_scatter_plan_orders_contributors_as_the_sequential_loop():
             got[d] += rows[r]
     np.testing.assert_array_equal(got, want)
     assert offsets[-1] - offsets[0] == valid.sum()
+
+
+def _plan_indices(kind, n_rows, shape=(64, 40), seed=4):
+    """Seeded int32 indices: uniform; half of them on one row; a few rows
+    holding long runs; out of range (negative and >= n_rows) mixed in."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, n_rows, size=shape).astype(np.int32)
+    flat = idx.reshape(-1)
+    if kind == "half_one_row":
+        flat[rng.permutation(flat.size)[:flat.size // 2]] = n_rows // 3
+    elif kind == "skewed":
+        flat[:] = (rng.zipf(1.3, size=flat.size) - 1) % n_rows
+    elif kind == "out_of_range":
+        pick = rng.permutation(flat.size)[:flat.size // 5]
+        flat[pick] = rng.choice([-1, -7, -2**31, n_rows, n_rows + 3, 2**31 - 1], size=pick.size)
+    return idx
+
+
+@pytest.mark.parametrize("kind,n_rows", [("uniform", 500), ("half_one_row", 500),
+                                         ("skewed", 97), ("out_of_range", 500),
+                                         ("out_of_range", 1)])
+def test_scatter_plan_plain_is_the_stable_argsort(kind, n_rows):
+    """What the plan kernels must reproduce bit for bit: `order` is numpy's
+    stable argsort of the indices with every out-of-range one (negative or
+    >= n_rows) taken as n_rows, so the dropped sources close it in ascending
+    order, and `offsets` are that sorted key's left edges 0..n_rows."""
+    idx = _plan_indices(kind, n_rows)
+    flat = idx.reshape(-1)
+    key = np.where((flat >= 0) & (flat < n_rows), flat, n_rows)
+    want_order = np.argsort(key, kind="stable")
+    want_offsets = np.searchsorted(key[want_order], np.arange(n_rows + 1), side="left")
+    order, offsets = scatter_plan(torch.tensor(idx), n_rows)
+    assert order.dtype == torch.int32 and offsets.dtype == torch.int32
+    np.testing.assert_array_equal(order.numpy(), want_order)
+    np.testing.assert_array_equal(offsets.numpy(), want_offsets)
+    if kind == "out_of_range":
+        dropped = np.flatnonzero(key == n_rows)
+        assert dropped.size > 0
+        np.testing.assert_array_equal(order.numpy()[offsets[-1]:], dropped)
+    # walking each segment in order from zero is the sequential loop, bit for bit
+    rows = np.random.default_rng(5).normal(size=(flat.size, P)).astype(np.float32)
+    loop = np.zeros((n_rows, P), np.float32)
+    valid = key < n_rows
+    np.add.at(loop, flat[valid], rows[valid])
+    got = np.zeros_like(loop)
+    for d in range(n_rows):
+        for r in want_order[want_offsets[d]:want_offsets[d + 1]]:
+            got[d] += rows[r]
+    np.testing.assert_array_equal(got, loop)
 
 
 @pytest.mark.parametrize("tps,align", [(1, 0), (4, 8), (8, 128)])
@@ -204,6 +253,29 @@ def test_bwd_stacked_plain_matches_pallas_probe_and_rasterize_bwd_plain(
             assert scale > 0, col
             np.testing.assert_allclose(got[:, :, col], want, rtol=0, atol=tol * scale + 1e-7,
                                        err_msg=f"column {col} against {what}")
+
+
+@pytest.mark.parametrize("npix", [256, 128, 64])
+def test_stacked_layout_is_balanced_for_every_sample_count(npix):
+    """The kernel's layout takes S = 1..16 at the three tile sizes: every
+    thread owns the same 1 to 4 stacked rows, the block holds at most 1024
+    threads in whole warps, and coefficient_passes counts the distinct pixel
+    strips of each thread's strip-major groups (S when a thread owns one
+    row; 2.0 at S = 5 and 16x16, 4 rows a thread)."""
+    for n_samples in range(1, 17):
+        rows, threads, passes = stacked_layout(n_samples, npix)
+        assert 1 <= rows <= 4 and rows * threads == n_samples * npix, n_samples
+        assert threads % 32 == 0 and threads <= 1024, n_samples
+        strips = npix // 32
+        own = [{g // n_samples for g in range(w, w + rows)}
+               for w in range(0, n_samples * strips, rows)]
+        assert passes == sum(map(len, own)) / strips, n_samples
+        if rows == 1:
+            assert passes == n_samples
+    assert stacked_layout(5, 256) == (4, 320, 2.0)
+    assert {stacked_layout(s, n).rows for s in range(1, 17) for n in (256, 128, 64)} == {1, 2, 3, 4}
+    with pytest.raises(ValueError, match="rows a thread"):
+        stacked_layout(5, 48)
 
 
 def test_bwd_stacked_wrapper_refuses_cpu_tensors_for_the_kernel():

@@ -507,3 +507,54 @@ def test_strategy_state_carrier():
                                       seed=1, device="cpu")
     assert state.grad_count.dtype == torch.int32 and state.grad_accum.dtype == torch.float32
     assert state.grad_accum.tolist() == [0.5, 0.0, 2.0] and state.grad_count.tolist() == [3, 0, 9]
+
+
+def _trainer_state(t):
+    """Every leaf and the three generators' states, cloned."""
+    state = {name: leaf.detach().clone() for name, leaf in named_leaves(t.params).items()}
+    for key, gen in (("sampler", t._sampler), ("background", t._bg_generator),
+                     ("split", t.strat_state.generator)):
+        state[f"generator.{key}"] = gen.get_state().clone()
+    return state
+
+
+@pytest.mark.parametrize("background", ["black", "white", "auto"])
+def test_evaluate_leaves_the_training_run_alone(scenes, background):
+    """A run with `evaluate()` between two `run` chunks ends bitwise where the
+    same run without it ends: leaves and generator states (the eval render
+    draws from none of the training streams)."""
+    _, tree = scenes
+    _, mc = _model_configs(background_color=background, optimize_eval_cameras=True)
+    tc = ttr.TrainerConfig(max_steps=8, seed=0, log_every=4, eval_opt_every=2)
+
+    def make():
+        scene, train_imgs, eval_imgs = scene_from_numpy(tree, device="cpu")
+        return ttr.Trainer(scene, mc, tc, train_images=train_imgs, eval_images=eval_imgs,
+                           device="cpu")
+
+    straight, paused = make(), make()
+    straight.run(8)
+    paused.run(4)
+    assert np.isfinite(paused.evaluate()["psnr"])
+    paused.run(4)
+    a, b = _trainer_state(straight), _trainer_state(paused)
+    assert a.keys() == b.keys()
+    for name in a:
+        assert torch.equal(a[name], b[name]), name
+
+
+def test_evaluate_refuses_a_random_background(scenes):
+    """The JAX eval render passes no key, and its background_color asserts
+    one for "random": the port raises, naming the mode, and draws nothing."""
+    _, tree = scenes
+    _, mc = _model_configs(background_color="random")
+    scene, train_imgs, eval_imgs = scene_from_numpy(tree, device="cpu")
+    t = ttr.Trainer(scene, mc, ttr.TrainerConfig(max_steps=2, seed=0), train_images=train_imgs,
+                    eval_images=eval_imgs, device="cpu")
+    t.run(2)
+    before = _trainer_state(t)
+    with pytest.raises(ValueError, match="random"):
+        t.evaluate()
+    after = _trainer_state(t)
+    for name in before:
+        assert torch.equal(before[name], after[name]), name
