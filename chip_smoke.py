@@ -80,7 +80,37 @@ Phases, each of which raises (and the script exits nonzero) on failure:
      prints the decoder and its time per image, the generation time, steps
      per second, the checkpoint's size and its save and load times, and peak
      memory;
-  9. print the `kernels` JSON line (launches from the loop's 200 steps, and
+  9. the user's path at the synthetic suite's published width
+     (`render_tools_phase`): `cli.generate_synthetic_suite` writes
+     synthetic-mb/scene0 (512 px, 1500 Gaussians, 33 frames, 17 ground-truth
+     blur samples) and prints its seconds per frame; `python -m
+     splat_tpu_torch.cli.train --variants baseline,motion_blur --iters 300`
+     trains both variants and renders their eval frames in subprocesses (rc
+     0, the run tree, each metrics.json with a finite PSNR and its three time
+     fields, one decodable, finite, non-constant `_pred` / `_gt` / `_depth`
+     per eval frame, both rows found by `cli.parse_outputs`; steps/s per
+     variant; each fit's four path kernels launched on every step); then, in
+     this process, each path with the counts set to 0 just before it and
+     read just after: `cli.render_video` (8 frames at 512 px that differ from
+     the same path at `--blur_scale 0`; the forward kernels launched for
+     every frame), the viewer (`/render` with exposure, rolling shutter and a
+     crop box, `/export.ply` cropped to fewer vertices; the forward kernels
+     launched for every render) and a 60-step `cli.fit --vis viewer` run that
+     answers a render request while it trains (all four kernels on every
+     step); `cli.export --min-opacity 0.005` (the PLY bitwise the trainer's
+     alive, thresholded leaves) launches none. The kernels' own launches on
+     three paths are recorded as the path made them (`KernelCapture`) and
+     held against their plain versions at phase 2's tolerances: one more
+     training step of the motion_blur run in this process (10 blur samples
+     split into anchor groups at 512 px: each group size once, forward and
+     backward), the first
+     video frame (a path camera with simulated blur and rolling shutter) and
+     the cropped viewer render; last,
+     `ops.reference.render_reference` against the kernel route's `rasterize`
+     (2,000 Gaussians at 256x256, rolling shutter 0.03 s, tile emulation):
+     rgb, alpha, T and the alpha-weighted depth sum within 1e-5, the CPU
+     test's tolerance;
+ 10. print the `kernels` JSON line (launches from the loop's 200 steps, and
      from the probes' timing loops for the four probe kernels; the launches of
      every driven path under `launches_by_path`), the card's name and power
      limit as nvidia-smi gives them, and the result line.
@@ -172,6 +202,23 @@ FIT_RESUME_FROM = 200
 FIT_TRUTH_PSNR_DB = 35.0
 FIT_PSNR_GAIN_DB = 0.5
 REFINE_EVERY = 20            # of the two runs that carry the fit's checkpoint on
+# phase 9: the suite's published width (cli/generate_synthetic_suite.py's
+# defaults: 512 px, 1500 Gaussians, 33 frames, 17 ground-truth blur samples,
+# seed 1000) and the synthetic parameter pack of cli/train.py (10 blur
+# samples, gamma 2.2, cull scale 2.0, eval every 8th frame)
+SUITE_RES = 512
+SUITE_FRAMES = 33
+SUITE_EVAL_FRAMES = 5            # frames 0, 8, 16, 24 and 32
+MATRIX_STEPS = 300
+MATRIX_VARIANTS = ("baseline", "motion_blur")
+VIDEO_FPS, VIDEO_SECONDS = 8, 1
+EXPORT_MIN_OPACITY = 0.005
+VIEWER_RES = 256
+LIVE_STEPS = 60
+# the reference renderer against the kernel route: the tolerance of
+# tests/test_torch_reference.py (rgb, alpha, T and the alpha-weighted depth
+# sum within 1e-5)
+REF_GAUSSIANS, REF_RES, REF_RS, REF_ATOL = 2000, 256, 0.03, 1e-5
 
 
 def check(ok: bool, what: str) -> None:
@@ -263,6 +310,419 @@ def load_probe(name: str):
     return module
 
 
+class _Recorder:
+    """Stands in for a kernel's wrapper (or the forward's launch) under the
+    name the port calls it by: calls it and hands each call's arguments and
+    result to `record`. `launches` reads and writes the wrapper's own count,
+    so counting goes on as before."""
+
+    def __init__(self, orig, record):
+        self.orig, self.record = orig, record
+
+    @property
+    def launches(self):
+        return self.orig.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.orig.launches = value
+
+    def __call__(self, *args, **kwargs):
+        out = self.orig(*args, **kwargs)
+        self.record(args, kwargs, out)
+        return out
+
+
+class KernelCapture:
+    """Inside `with`: the inputs and the output of the first kernel launch of
+    each path kernel for each shape key (the compositors by sample count and
+    tile, seg_copy by K, row_gather by padding), copied as the driven path
+    made them, from any host thread. `hold` then holds each against its
+    plain version at phase 2's tolerances. Holding makes no launch."""
+
+    def __init__(self, label: str):
+        import threading
+        self.label, self.records, self._lock = label, {}, threading.Lock()
+
+    def _keep(self, key, args, kwargs, out):
+        with self._lock:
+            if key not in self.records:
+                copy = lambda t: t.detach().clone() if torch.is_tensor(t) else t  # noqa: E731
+                self.records[key] = ([copy(a) for a in args], dict(kwargs), copy(out))
+
+    def __enter__(self):
+        from splat_tpu_torch.ops import cuda as kcuda
+        from splat_tpu_torch.ops.cuda import rasterize_kernels as rk
+
+        def on_fwd(args, kw, out):         # _launch_fwd: the kernel, always
+            self._keep(("rasterize_fwd", args[2].shape[0] - 2, str(args[3])), args, kw, out)
+
+        def on_bwd(args, kw, out):
+            if rk._use_kernel(kw.get("impl", "auto"), args[0]):
+                self._keep(("rasterize_bwd", args[2].shape[0] - 2, str(args[5])), args, kw, out)
+
+        def on_seg(args, kw, out):
+            if rk._use_kernel(kw.get("impl", "auto"), args[0]):
+                self._keep(("seg_copy", args[2]), args, kw, out)
+
+        def on_gather(args, kw, out):
+            if rk._use_kernel(kw.get("impl", "auto"), args[0]):
+                self._keep(("row_gather", kw.get("pad_rows", 0)), args, kw, out)
+
+        self._patched = [(rk, "_launch_fwd", on_fwd), (rk, "rasterize_bwd", on_bwd),
+                         (kcuda, "_seg_copy", on_seg), (kcuda, "_row_gather", on_gather)]
+        self._saved = [(mod, name, getattr(mod, name)) for mod, name, _ in self._patched]
+        for mod, name, record in self._patched:
+            setattr(mod, name, _Recorder(getattr(mod, name), record))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, orig in self._saved:
+            setattr(mod, name, orig)
+        return False
+
+    def kinds(self, name: str) -> list:
+        """The shape keys recorded for kernel `name`."""
+        return sorted(k[1:] for k in self.records if k[0] == name)
+
+    def hold(self, stacked_shares) -> dict[str, float]:
+        """Every record against its plain version: seg_copy and row_gather
+        bitwise; the forward compositor at atol 1e-4 on rgb and T and 1e-3
+        on depth_acc, its cull missing no compositing group; the backward
+        within BWD_TOL of max|plain|. Returns max|err| by kernel."""
+        from splat_tpu_torch.ops.cuda import rasterize_kernels as rk
+        from splat_tpu_torch.ops.cuda.row_gather import row_gather_plain
+        from splat_tpu_torch.ops.cuda.seg_copy import seg_copy_plain
+
+        errs, said = {}, []
+        for key, (args, kw, got) in sorted(self.records.items(), key=str):
+            name, what = key[0], f"{self.label}: {key[0]} {key[1:]}"
+            if name == "seg_copy":
+                check(torch.equal(got, seg_copy_plain(*args[:3])),
+                      f"{what} bitwise its plain version")
+                err, note = 0.0, f"{tuple(got.shape)} bitwise"
+            elif name == "row_gather":
+                want = row_gather_plain(args[0], args[1], kw.get("pad_rows", 0))
+                check(torch.equal(got, want), f"{what} bitwise its plain version")
+                err, note = 0.0, f"{tuple(got.shape)} bitwise"
+            elif name == "rasterize_fwd":
+                want, w = rk.rasterize_fwd_plain(*args, count_work=True)
+                err_c = (got[:, :, [0, 1, 2, 4]] - want[:, :, [0, 1, 2, 4]]).abs().max().item()
+                err_d = (got[:, :, 3] - want[:, :, 3]).abs().max().item()
+                check(err_c <= 1e-4 and err_d <= 1e-3, f"{what} within tolerance "
+                      f"(rgb/T {err_c:.3g}, depth {err_d:.3g})")
+                check(w["missed_groups"] == 0, f"{what}: the cull keeps every compositing group")
+                err = max(err_c, err_d)
+                note = (f"T {got.shape[0]}, K {args[0].shape[1]}, max|err| rgb/T {err_c:.3g} "
+                        f"depth {err_d:.3g}, {w['hit_pairs']} compositing pairs")
+            else:
+                want = rk.rasterize_bwd_plain(*args)
+                check(not got[:, :, rk.NPARAM - 1:].any(), f"{what}: zero columns")
+                shares = stacked_shares(got, want)
+                for kind, tol in BWD_TOL.items():
+                    check(shares[kind] <= tol, f"{what}: per-{kind} share {shares[kind]:.3g} "
+                          f"within {tol}")
+                err = (got - want).abs().max().item()
+                note = (f"T {got.shape[0]}, K {got.shape[1]}, max|err| {err:.3g}, per column "
+                        f"{shares['column']:.3g} of max|plain|")
+            errs[name] = max(errs.get(name, 0.0), err)
+            said.append(f"{key[0]} {key[1:]}: {note}")
+        print(f"{self.label}, the path's own launches against the plain versions: "
+              + "; ".join(said))
+        return errs
+
+
+def _get(url: str, timeout: float = 120.0) -> bytes:
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.read()
+
+
+def _ply_vertices(data: bytes) -> np.ndarray:
+    """The vertex records of a binary little-endian float PLY, by property."""
+    head, _, body = data.partition(b"end_header\n")
+    lines = head.decode().splitlines()
+    n = int(next(ln for ln in lines if ln.startswith("element vertex")).split()[-1])
+    props = [ln.split()[-1] for ln in lines if ln.startswith("property float")]
+    check(len(body) == n * 4 * len(props), "the PLY body holds n records")
+    return np.frombuffer(body, dtype=[(p, "<f4") for p in props], count=n)
+
+
+def render_tools_phase(root: Path, reset_counts, stacked_shares) -> dict:
+    """Phase 9: the user's path at the suite's published width. The suite
+    generator writes scene0 of synthetic-mb; `python -m
+    splat_tpu_torch.cli.train` trains the baseline and motion_blur variants
+    for MATRIX_STEPS steps in its own subprocesses (each `fit` reports its
+    process's kernel launches, counted from 0 at its start) and renders
+    their eval frames; then, in this process, each with the counts set to 0
+    just before it and read just after: a camera-path video of the
+    motion_blur run, the viewer on that run, and a `fit --vis viewer` run
+    answering a render request while it trains. The PLY export launches no
+    kernel. The kernels' own launches on three of these paths are held
+    against their plain versions (`KernelCapture`): one training step of the
+    motion_blur run in this process (its anchor groups' sample counts at 512
+    px), the first video frame (path camera, simulated blur, rolling
+    shutter) and the cropped viewer render. Last, the reference renderer
+    against the kernel route (a comparison: not counted). Returns the
+    launches by path and max|err| by kernel."""
+    import socket
+    import subprocess
+    import threading
+    import urllib.error
+
+    from splat_tpu_torch.cli import export as cli_export
+    from splat_tpu_torch.cli import fit as cli_fit
+    from splat_tpu_torch.cli import generate_synthetic_suite as cli_suite
+    from splat_tpu_torch.cli import parse_outputs
+    from splat_tpu_torch.cli import render_video as cli_video
+    from splat_tpu_torch.cli import train as cli_train
+    from splat_tpu_torch.cli import viewer as cli_viewer
+    from splat_tpu_torch.cli.evaluate import load_trainer_from_config
+    from splat_tpu_torch.data.png import decode_png, read_png
+    from splat_tpu_torch.ops import cuda as kcuda
+    from splat_tpu_torch.ops import projection, rasterize
+    from splat_tpu_torch.ops.reference import render_reference
+
+    dev = torch.device("cuda")
+    work = root / "_runs" / "chip_smoke_matrix"
+    shutil.rmtree(work, ignore_errors=True)
+    inputs, outputs = work / "inputs", work / "outputs"
+
+    # 1. the suite's scene, rendered on the card
+    t0 = time.perf_counter()
+    cli_suite.main(["--input-dir", str(inputs), "--resolution", str(SUITE_RES), "--scenes", "1",
+                    "--variants", "mb"])
+    gen_s = time.perf_counter() - t0
+    scene_dir = inputs / "synthetic-mb" / "scene0"
+    meta = json.loads((scene_dir / "transforms.json").read_text())
+    check(len(meta["frames"]) == SUITE_FRAMES and meta["w"] == meta["h"] == SUITE_RES,
+          "the suite scene: 33 frames at 512 px")
+    print(f"matrix: synthetic-mb/scene0 written in {gen_s:.2f} s "
+          f"({gen_s / SUITE_FRAMES:.3f} s per frame, {SUITE_FRAMES} frames at {SUITE_RES} px, "
+          f"exposure {meta['exposure_time']} s)")
+
+    # 2. two variants of the matrix, each run a process of its own
+    cmd = [sys.executable, "-m", "splat_tpu_torch.cli.train", "--dataset", "synthetic-mb",
+           "--input-dir", str(inputs), "--output-dir", str(outputs),
+           "--variants", ",".join(MATRIX_VARIANTS), "--iters", str(MATRIX_STEPS)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=900)
+    train_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:] + proc.stderr[-4000:], file=sys.stderr)
+    check(proc.returncode == 0, "cli.train and its fit and render_model subprocesses end with rc 0")
+    per_fit = [json.loads(ln.split(": ", 1)[1]) for ln in proc.stdout.splitlines()
+               if ln.startswith("kernel launches: ")]
+    check(len(per_fit) == len(MATRIX_VARIANTS), "each fit reports its kernel launches")
+    for counts in per_fit:
+        for k, n in counts.items():
+            check(n >= MATRIX_STEPS, f"{k} launched on every step of a matrix run")
+    matrix_launches = {k: sum(c[k] for c in per_fit) for k in per_fit[0]}
+    runs = {}
+    for variant in MATRIX_VARIANTS:
+        run_root = outputs / "synthetic-mb" / variant / "scene0" / "splatfacto"
+        stamps = list(run_root.iterdir())
+        check(len(stamps) == 1, f"{variant}: one run under OUTPUT/DATASET/VARIANT/SESSION/splatfacto")
+        run = runs[variant] = stamps[0]
+        for name in ("config.json", "dataparser_transforms.json", "metrics.json",
+                     "metrics_train.jsonl", f"checkpoints/step_{MATRIX_STEPS}/state.npz"):
+            check((run / name).exists(), f"{variant}: {name}")
+        m = json.loads((run / "metrics.json").read_text())
+        check(np.isfinite(m["results"]["psnr"]) and all(
+            np.isfinite(m[k]) for k in ("wall_clock_time_seconds", "train_time_seconds",
+                                        "compile_time_seconds")),
+              f"{variant}: a finite PSNR and the three time fields")
+        steps = [json.loads(ln) for ln in (run / "metrics_train.jsonl").read_text().splitlines()]
+        steps = [r for r in steps if "steps_per_s" in r]
+        renders = run / "renders" / "eval"
+        for i in range(SUITE_EVAL_FRAMES):
+            pred, gt = read_png(renders / f"{i:05d}_pred.png"), read_png(renders / f"{i:05d}_gt.png")
+            depth = np.load(renders / f"{i:05d}_depth.npy")
+            check(pred.shape == gt.shape == (SUITE_RES, SUITE_RES, 3) and pred.std() > 0
+                  and gt.std() > 0, f"{variant}: eval render {i} decodes and is not constant")
+            check(read_png(renders / f"{i:05d}_depth.png").std() > 0
+                  and np.isfinite(depth).any() and np.nanstd(depth[np.isfinite(depth)]) > 0,
+                  f"{variant}: depth {i} finite and not constant")
+        check(not (renders / f"{SUITE_EVAL_FRAMES:05d}_pred.png").exists(),
+              f"{variant}: one render per eval frame")
+        print(f"matrix: {variant}: psnr {m['results']['psnr']:.3f} dB, ssim "
+              f"{m['results']['ssim']:.4f}; {MATRIX_STEPS / m['train_time_seconds']:.2f} steps/s "
+              f"over the run, {statistics.median(r['steps_per_s'] for r in steps):.2f} in its "
+              f"logged windows; wall {m['wall_clock_time_seconds']:.2f} s (the subprocess's)")
+    rows = parse_outputs.find_and_parse_directories_containing_splatting_metrics(outputs)
+    check(sorted(r["variant"] for r in rows) == sorted(MATRIX_VARIANTS)
+          and all(r["dataset"] == "synthetic-mb" and r["session"] == "scene0" for r in rows),
+          "parse_outputs finds both rows")
+    print(f"matrix: cli.train {train_s:.2f} s for {len(MATRIX_VARIANTS)} runs and their renders; "
+          f"launches {matrix_launches}")
+
+    # 3.-5. render, export and view the motion_blur run, counting each path's launches
+    mb_config = runs["motion_blur"] / "config.json"
+    by_path, errs = {"matrix": matrix_launches}, {}
+
+    def hold(capture, want_bwd: bool):
+        names = ("rasterize_fwd", "seg_copy", "row_gather")
+        for name in names + (("rasterize_bwd",) if want_bwd else ()):
+            check(capture.kinds(name), f"{capture.label}: {name} launched and recorded")
+        for name, err in capture.hold(stacked_shares).items():
+            errs[name] = max(errs.get(name, 0.0), err)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    video = {}
+    for name, scale in (("video", "1"), ("video_sharp", "0")):
+        argv = [str(work / name), "--load-config", str(mb_config), "--seconds",
+                str(VIDEO_SECONDS), "--fps", str(VIDEO_FPS), "--blur_scale", scale]
+        if name == "video":
+            with KernelCapture("video (path camera, exposure and rolling shutter)") as path_cap:
+                cli_video.main(argv)
+        else:
+            cli_video.main(argv)
+        video[name] = [read_png(f) for f in sorted((work / name / "frames").glob("*.png"))]
+        check(len(video[name]) == VIDEO_FPS * VIDEO_SECONDS
+              and all(f.shape == (SUITE_RES, SUITE_RES, 3) and f.std() > 0 for f in video[name]),
+              f"{name}: 8 frames at 512 px, none constant")
+    video_s = time.perf_counter() - t0
+    blur_diff = max(float(np.abs(a.astype(np.int32) - b.astype(np.int32)).mean())
+                    for a, b in zip(video["video"], video["video_sharp"]))
+    check(blur_diff > 0.5, "the exposure shows: frames differ from the same path at blur_scale 0")
+    by_path["video"] = kcuda.path_launches()
+    n_frames = 2 * VIDEO_FPS * VIDEO_SECONDS
+    for k in ("seg_copy", "rasterize_fwd", "row_gather"):
+        check(by_path["video"][k] >= n_frames, f"video: {k} launched for each of {n_frames} frames")
+    hold(path_cap, want_bwd=False)
+
+    n_export = cli_export.main(["--load-config", str(mb_config), "--output",
+                                str(work / "model.ply"), "--min-opacity", str(EXPORT_MIN_OPACITY)])
+    rec = _ply_vertices((work / "model.ply").read_bytes())
+    _, loaded = load_trainer_from_config(mb_config)
+    g = loaded.params.gaussians
+    keep = ((g.alive > 0) & (torch.sigmoid(g.opacities_logit) >= EXPORT_MIN_OPACITY)).cpu().numpy()
+    leaf = lambda t: t.detach().cpu().numpy()[keep]  # noqa: E731
+    n_rest = g.features_rest.shape[1]
+    rest_cm = np.transpose(leaf(g.features_rest), (0, 2, 1)).reshape(-1, 3 * n_rest)
+    check(len(rec) == n_export == int(keep.sum()) > 0, "the PLY holds the alive, thresholded Gaussians")
+    pairs = [(("x", "y", "z"), leaf(g.means)), (("scale_0", "scale_1", "scale_2"), leaf(g.scales_log)),
+             (tuple(f"rot_{i}" for i in range(4)), leaf(g.quats)),
+             (("opacity",), leaf(g.opacities_logit)[:, None]),
+             (("f_dc_0", "f_dc_1", "f_dc_2"), leaf(g.features_dc)),
+             (tuple(f"f_rest_{i}" for i in range(3 * n_rest)), rest_cm)]
+    for names, want in pairs:
+        got = np.stack([rec[n] for n in names], axis=1)
+        check(np.array_equal(got, want), f"the PLY's {names[0]}.. bitwise the trainer's leaves")
+    del g
+    # one more training step of the motion_blur run, in this process (a
+    # comparison, outside every counted path): its anchor groups' launches
+    with KernelCapture("a motion_blur training step at 512 px") as step_cap:
+        loaded.run(1)
+    fwd_s = [k[0] for k in step_cap.kinds("rasterize_fwd")]
+    bwd_s = [k[0] for k in step_cap.kinds("rasterize_bwd")]
+    check(fwd_s == bwd_s and len(step_cap.kinds("row_gather")) == 2,
+          "the step's forward and backward compositors at the same sample counts, row_gather at "
+          "both of its shapes")
+    print(f"matrix: one motion_blur step in this process at {loaded.model_config.blur_samples} "
+          f"blur samples in {loaded.model_config.blur_anchors} anchor groups: compositors at S in "
+          f"{sorted(set(fwd_s))}")
+    hold(step_cap, want_bwd=True)
+    del loaded
+
+    state = cli_viewer.ViewerState(mb_config, VIEWER_RES)
+    server = cli_viewer.serve(state, host="127.0.0.1", port=0)
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    reset_counts()
+    try:
+        t1 = time.perf_counter()
+        img = decode_png(_get(f"{url}/render?yaw=0.5&pitch=0.3&r=3&exp=0.06&rs=0.03"))
+        view_ms = (time.perf_counter() - t1) * 1e3
+        with KernelCapture("viewer (crop box, exposure and rolling shutter)") as crop_cap:
+            crop = decode_png(_get(f"{url}/render?yaw=0.5&pitch=0.3&r=3&exp=0.06&rs=0.03"
+                                   "&cx0=0.2&cx1=0.8&cy0=0.2&cy1=0.8&cz0=0&cz1=1"))
+        check(img.shape == crop.shape == (VIEWER_RES, VIEWER_RES, 3) and img.std() > 0
+              and not np.array_equal(img, crop), "the viewer renders, and a crop box changes it")
+        full = _ply_vertices(_get(f"{url}/export.ply"))
+        small = _ply_vertices(_get(f"{url}/export.ply?cx0=0.25&cx1=0.75&cy0=0.25&cy1=0.75"
+                                   "&cz0=0.25&cz1=0.75"))
+        check(0 < len(small) < len(full), "a small crop exports fewer Gaussians")
+    finally:
+        server.shutdown()
+        server.server_close()
+    by_path["viewer"] = kcuda.path_launches()
+    for k in ("seg_copy", "rasterize_fwd", "row_gather"):
+        check(by_path["viewer"][k] >= 2, f"viewer: {k} launched for each of 2 render requests")
+    hold(crop_cap, want_bwd=False)
+
+    with socket.socket() as sock:           # a free port for the live viewer
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    _, mb_flags = cli_train.flags_to_variant_name_and_cmd({"motion_blur"}, "synthetic-mb", False)
+    argv = ["splatfacto", "--data", str(scene_dir), "--output-dir", str(work / "live"),
+            "--experiment-name", "live", "--max-num-iterations", str(LIVE_STEPS), "--vis", "viewer",
+            "--viewer-port", str(port), *mb_flags, "nerfstudio-data", "--eval-mode", "interval",
+            "--eval-interval", "8", "--orientation-method", "none"]
+    done, seen = threading.Event(), []
+
+    def look():
+        while not done.is_set():
+            try:
+                png = _get(f"http://127.0.0.1:{port}/render?exp=0.06&rs=0.03", timeout=30)
+            except (urllib.error.URLError, ConnectionError):
+                time.sleep(0.01)
+                continue
+            seen.append((decode_png(png), done.is_set()))
+            return
+
+    looker = threading.Thread(target=look)
+    reset_counts()
+    looker.start()
+    try:
+        live_dir = cli_fit.main(argv)
+    finally:
+        done.set()
+        looker.join(timeout=120)
+    check(not looker.is_alive(), "the request thread ended")
+    check(len(seen) == 1 and not seen[0][1] and seen[0][0].shape == (VIEWER_RES, VIEWER_RES, 3),
+          "the live viewer answered a render request while fit trained")
+    live = json.loads((live_dir / "metrics.json").read_text())
+    check(np.isfinite(live["results"]["psnr"]), "the live-viewer run's PSNR is finite")
+    by_path["live_fit"] = kcuda.path_launches()
+    for k, n in by_path["live_fit"].items():
+        check(n >= LIVE_STEPS, f"live fit: {k} launched on every one of {LIVE_STEPS} steps")
+    print(f"render tools: video 2 x {VIDEO_FPS} frames at {SUITE_RES} px in {video_s:.2f} s "
+          f"(mean |frame - sharp frame| up to {blur_diff:.2f} levels); export {n_export} of "
+          f"{int(keep.size)} slots; viewer {view_ms:.1f} ms for a {VIEWER_RES} px render "
+          f"({len(full)} -> {len(small)} Gaussians cropped); live run of {LIVE_STEPS} steps psnr "
+          f"{live['results']['psnr']:.3f} dB; launches: video {by_path['video']}, viewer "
+          f"{by_path['viewer']}, live fit {by_path['live_fit']}")
+
+    # 6. the reference renderer against the kernel route (no blur)
+    rng = np.random.default_rng(SEED + 9)
+    means, scales, quats, colors, opac = make_scene(REF_GAUSSIANS, SEED + 9)
+    f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev)  # noqa: E731
+    fl = 0.9 * REF_RES
+    proj = projection.project_gaussians(
+        f32(means), f32(scales * 4.0), f32(quats), torch.eye(3, device=dev),
+        torch.zeros(3, device=dev), fl, fl, REF_RES / 2, REF_RES / 2, REF_RES, REF_RES,
+        lin_vel=f32([0.4, -0.2, 0.1]), ang_vel=f32([0.05, 0.1, -0.02]))
+    bg = f32(rng.uniform(0, 1, 3))
+    ref = render_reference(proj, f32(colors), f32(opac), REF_RES, REF_RES, bg,
+                           rolling_shutter_time=REF_RS, chunk=64, tile_size=16,
+                           max_tiles_per_gaussian=16)
+    ker = rasterize.rasterize(proj, f32(colors), f32(opac), REF_RES, REF_RES, bg,
+                              rolling_shutter_time=REF_RS, tile_size=16, max_per_tile=256,
+                              max_tiles_per_gaussian=16, impl="cuda")
+    ref_errs = {name: float((getattr(ker, name) - getattr(ref, name)).abs().max())
+                for name in ("rgb", "alpha", "transmittance")}
+    ref_errs["depth * alpha"] = float((ker.depth * ker.alpha - ref.depth * ref.alpha).abs().max())
+    print(f"reference vs kernels: {REF_GAUSSIANS} Gaussians at {REF_RES}x{REF_RES}, rolling "
+          f"shutter {REF_RS} s, coverage {float(ref.alpha.mean()):.3f}: max|diff| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in ref_errs.items()))
+    check(float(ref.alpha.max()) > 0.5, "the reference scene covers pixels")
+    check(all(v <= REF_ATOL for v in ref_errs.values()),
+          f"the kernel route within {REF_ATOL} of the reference renderer")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"launches": by_path, "errs": errs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one", file=sys.stderr)
@@ -294,10 +754,6 @@ def main() -> int:
     path_kernels = (seg_copy, rk.rasterize_fwd, rk.rasterize_bwd, row_gather)
     probe_kernels = (row_scatter, scatter_plan, seg_dma, chunk_cumsum, bwd_stacked)
     stacked_probe = probes["probe_bwd_stacked_torch"]
-
-    def path_counts():
-        return {"seg_copy": seg_copy.launches, "rasterize_fwd": rk.rasterize_fwd.launches,
-                "rasterize_bwd": rk.rasterize_bwd.launches, "row_gather": row_gather.launches}
 
     def reset_counts():
         for kern in path_kernels + probe_kernels:
@@ -421,7 +877,7 @@ def main() -> int:
         run_dir = cli_fit.main(argv)
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
-        fit_launches = path_counts()
+        fit_launches = kcuda.path_launches()
         fit_peak_gib = torch.cuda.max_memory_allocated() / 2**30
         for k, n in fit_launches.items():
             check(n >= FIT_STEPS, f"{k} launched on every step of the fit path")
@@ -724,7 +1180,7 @@ def main() -> int:
                   for i in range(N_CAMERAS)]
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t0) * 1e3 / N_CAMERAS
-        by_path = {"render": path_counts()}
+        by_path = {"render": kcuda.path_launches()}
         render_launches = {k: v for k, v in by_path["render"].items() if k != "rasterize_bwd"}
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         print(f"render path: {N_CAMERAS} cameras, launches {render_launches}, "
@@ -817,7 +1273,7 @@ def main() -> int:
         losses.append(loss)
         n_visible.append(aux["n_visible"])
     torch.cuda.synchronize()
-    step_launches = by_path["train"] = path_counts()
+    step_launches = by_path["train"] = kcuda.path_launches()
     losses = torch.stack(losses).tolist()
     print(f"train: {TRAIN_STEPS} steps from step {TRAIN_START}, launches {step_launches}; losses "
           + " ".join(f"{v:.5f}" for v in losses)
@@ -889,7 +1345,7 @@ def main() -> int:
     history = loop.run(LOOP_STEPS)
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t0
-    launches = by_path["loop"] = path_counts()
+    launches = by_path["loop"] = kcuda.path_launches()
     loop_peak_gib = torch.cuda.max_memory_allocated() / 2**30
     after = loop.evaluate()
     events = loop.refine_events
@@ -1167,6 +1623,10 @@ def main() -> int:
         del bwd_args, fwd_args, blocks, sp, table, d_slots
 
     fit = fit_phase()
+    tools = render_tools_phase(Path(__file__).resolve().parent, reset_counts,
+                               stacked_probe.shares)
+    for kname, err in tools["errs"].items():
+        errs[kname] = max(errs[kname], err)
 
     kernels = [
         {"name": "seg_copy", "route": "cuda", "source": "splat_tpu_torch/ops/cuda/csrc/seg_copy.cu",
@@ -1231,6 +1691,7 @@ def main() -> int:
          "hit_groups": stacked_work["hit_groups"]},
     ]
     by_path["fit"] = fit["launches"]
+    by_path.update(tools["launches"])
     for kern in kernels:
         if kern["name"] in launches:
             kern["launches_by_path"] = {path: counts[kern["name"]]

@@ -15,11 +15,16 @@ Writes the same output-directory contract:
   OUTPUT_DIR/EXPERIMENT/splatfacto/TIMESTAMP/{config.json,
   dataparser_transforms.json, checkpoints/step_N/, metrics_train.jsonl,
   metrics.json}
-`--vis viewer` and `--mesh.enabled True` raise: the viewer and the
-multi-device mesh are not ported yet.
+`--vis viewer` serves the live viewer (`cli/viewer.py`) on --viewer-port
+while it trains: the loop publishes a snapshot of the Gaussians to it after
+every logged window and every chunk, and the viewer closes when the run
+ends. The run's last lines give the kernel launches of the process and the
+eval metrics. `--mesh.enabled True` raises: the
+multi-device mesh is not ported yet.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import sys
@@ -32,14 +37,10 @@ def main(argv=None):
     from ..data import dataset as ds
     from ..engine import config as cfg_mod
     from ..engine import trainer as tr
-    from ..ops.cuda import build
 
     cfg = cfg_mod.parse_cli(argv)
     if not cfg.data:
         raise SystemExit("--data is required")
-    if "viewer" in (cfg.vis or ""):
-        raise NotImplementedError(
-            "--vis viewer: the live viewer is not ported yet (the viewer slice, cli/viewer.py)")
 
     run_dir = cfg.run_dir()
     run_dir.mkdir(parents=True, exist_ok=True)
@@ -64,6 +65,27 @@ def main(argv=None):
     trainer = tr.Trainer(scene, cfg.model, tc, train_images=train_images,
                          eval_images=eval_images, device=cfg.device)
 
+    with contextlib.ExitStack() as stack:
+        viewer_state = None
+        if "viewer" in (cfg.vis or ""):
+            # live-training browser viewer (ns-train --vis viewer equivalent); it
+            # renders the snapshots the loop publishes, never the live leaves
+            from . import viewer as viewer_mod
+
+            viewer_state = viewer_mod.ViewerState.from_trainer(cfg, trainer, res=256)
+            server = viewer_mod.serve(viewer_state, port=cfg.viewer_port)
+            stack.callback(server.server_close)     # the viewer lives as long as the run
+            stack.callback(server.shutdown)
+        return _train(cfg, trainer, run_dir, viewer_state)
+
+
+def _train(cfg, trainer, run_dir, viewer_state):
+    """`main`'s training loop, evals, checkpoints and metrics.json; publishes
+    to `viewer_state` (None: no viewer) between steps. Returns run_dir."""
+    from ..engine import config as cfg_mod
+    from ..ops import cuda as kcuda
+    from ..ops.cuda import build
+
     log_path = run_dir / "metrics_train.jsonl"
     # the clock and the build count start together: a kernel built before
     # this point is in neither the wall time nor the compile time
@@ -79,6 +101,8 @@ def main(argv=None):
         tb_writer = TBEventWriter(run_dir / "tensorboard")
 
     def cb(rec):
+        if viewer_state is not None:
+            viewer_state.publish(trainer)
         with open(log_path, "a") as f:
             f.write(json.dumps(rec) + "\n")
         if tb_writer is not None:
@@ -117,6 +141,8 @@ def main(argv=None):
         )
         trainer.run(chunk, progress_cb=cb)
         steps_done += chunk
+        if viewer_state is not None:
+            viewer_state.publish(trainer)
         persist_config_if_grown()
         if cfg.steps_per_eval > 0 and steps_done >= next_eval:
             m = trainer.evaluate()
@@ -150,6 +176,7 @@ def main(argv=None):
         "train_time_seconds": wall - compile_s,
     }
     (run_dir / "metrics.json").write_text(json.dumps(out, indent=2))
+    print("kernel launches: " + json.dumps(kcuda.path_launches()), flush=True)
     print(json.dumps(out["results"]))
     return run_dir
 

@@ -7,7 +7,8 @@ images through it and `data.synthetic` writes its frames with it.
 RGBA files with any of the five scanline filters and returns the pixels as
 they are stored, (H, W) or (H, W, C) uint8; anything else (16-bit, palette,
 Adam7) raises ValueError with the file's name. `write_png` writes (H, W, 3)
-uint8 as RGB8 with the Sub filter on every scanline.
+uint8 as RGB8 with the Sub filter on every scanline. `decode_png` and
+`encode_png` do the same on bytes in memory (the viewer serves them).
 """
 from __future__ import annotations
 
@@ -41,7 +42,11 @@ def _unfilter_sequential(kind: int, line: np.ndarray, up: np.ndarray, ch: int) -
 
 def read_png(path: str | Path) -> np.ndarray:
     """The file's pixels: (H, W) uint8 for greyscale, else (H, W, C)."""
-    data = Path(path).read_bytes()
+    return decode_png(Path(path).read_bytes(), path)
+
+
+def decode_png(data: bytes, path: str | Path = "<bytes>") -> np.ndarray:
+    """The pixels of a PNG held in memory (`path` names it in errors)."""
     if data[:8] != MAGIC:
         raise ValueError(f"{path}: not a PNG file")
     pos, idat, header = 8, [], None
@@ -95,6 +100,11 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
 
 def write_png(path: str | Path, image: np.ndarray) -> None:
     """Write (H, W, 3) uint8 as an RGB8 PNG."""
+    Path(path).write_bytes(encode_png(image))
+
+
+def encode_png(image: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 as the bytes of an RGB8 PNG."""
     image = np.asarray(image)
     if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] != 3:
         raise ValueError(f"write_png wants (H, W, 3) uint8, got {image.shape} {image.dtype}")
@@ -104,6 +114,5 @@ def write_png(path: str | Path, image: np.ndarray) -> None:
     diff = image.copy()
     diff[:, 1:] -= image[:, :-1]                            # modulo 256
     lines[:, 1:] = diff.reshape(h, w * 3)
-    Path(path).write_bytes(
-        MAGIC + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-        + _chunk(b"IDAT", zlib.compress(lines.tobytes())) + _chunk(b"IEND", b""))
+    return (MAGIC + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(lines.tobytes())) + _chunk(b"IEND", b""))

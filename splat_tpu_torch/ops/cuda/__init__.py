@@ -16,9 +16,16 @@ import torch
 
 from .. import tiling
 from ..projection import ProjectedGaussians
-from .rasterize_kernels import NPARAM, PARAM_STRIDE, rasterize_fwd
+from .rasterize_kernels import NPARAM, PARAM_STRIDE, rasterize_bwd, rasterize_fwd
 from .row_gather import row_gather as _row_gather
 from .seg_copy import seg_copy as _seg_copy
+
+
+def path_launches() -> dict[str, int]:
+    """This process's launches of the four kernels on the render and training
+    path (each wrapper counts its own; zero where only plain versions ran)."""
+    return {"seg_copy": _seg_copy.launches, "rasterize_fwd": rasterize_fwd.launches,
+            "rasterize_bwd": rasterize_bwd.launches, "row_gather": _row_gather.launches}
 
 
 def pack_param_table(

@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -89,11 +90,28 @@ def build(names: list[str]) -> dict[str, dict]:
     return report
 
 
+# the live viewer renders from a second host thread while training launches
+# from the first: a first use builds once, and no launch goes uncounted
+_build_lock = threading.Lock()
+_count_lock = threading.Lock()
+
+
 @functools.cache
-def load(name: str) -> ctypes.CDLL:
-    """The compiled library for csrc/<name>.cu, built on first use."""
+def _load(name: str) -> ctypes.CDLL:
     build([name])
     return ctypes.CDLL(str(_lib_path(name)))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The compiled library for csrc/<name>.cu, built on first use."""
+    with _build_lock:
+        return _load(name)
+
+
+def count_launch(wrapper) -> None:
+    """`wrapper.launches += 1`, from any host thread."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def entry(lib_name: str, fn_name: str, argtypes: list) -> ctypes._CFuncPtr:

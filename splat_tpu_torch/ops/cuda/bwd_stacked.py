@@ -231,7 +231,7 @@ def bwd_stacked(params: torch.Tensor, counts: torch.Tensor, scalars: torch.Tenso
                      + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(params.device):
         stream = torch.cuda.current_stream(params.device).cuda_stream
-        bwd_stacked.launches += 1
+        build.count_launch(bwd_stacked)
         build.check(fn(params.data_ptr(), counts.data_ptr(), scalars.data_ptr(),
                        fwd_out.data_ptr(), g_out.data_ptr(), d_params.data_ptr(),
                        n_tiles, k, sw, sh, tiles_x, float(img_h), n_samples, tps, rows, stream),

@@ -51,7 +51,7 @@ def chunk_cumsum(x: torch.Tensor, variant: str = "seq", impl: str = "auto") -> t
                       ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        chunk_cumsum.launches += 1
+        build.count_launch(chunk_cumsum)
         build.check(fn(x.data_ptr(), out.data_ptr(), n_blocks, chunk, npix, stream),
                     f"chunk_cumsum({variant})")
     return out

@@ -404,7 +404,7 @@ def _launch_fwd(params, counts, scalars, tile_size, tiles_x, img_h):
                      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(params.device):
         stream = torch.cuda.current_stream(params.device).cuda_stream
-        rasterize_fwd.launches += 1
+        build.count_launch(rasterize_fwd)
         build.check(fn(params.data_ptr(), counts.data_ptr(), scalars.data_ptr(),
                        out.data_ptr(), n_tiles, k, sw, sh, tiles_x, float(img_h),
                        n_samples, stream), "rasterize_fwd")
@@ -441,7 +441,7 @@ def rasterize_bwd(params: torch.Tensor, counts: torch.Tensor, scalars: torch.Ten
                      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(params.device):
         stream = torch.cuda.current_stream(params.device).cuda_stream
-        rasterize_bwd.launches += 1
+        build.count_launch(rasterize_bwd)
         build.check(fn(params.data_ptr(), counts.data_ptr(), scalars.data_ptr(),
                        fwd_out.data_ptr(), g_out.data_ptr(), d_params.data_ptr(),
                        n_tiles, k, sw, sh, tiles_x, float(img_h), n_samples, stream),

@@ -67,7 +67,7 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor, impl: str = "auto",
                       ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
-        row_gather.launches += 1
+        build.count_launch(row_gather)
         build.check(fn(table.data_ptr(), idx.data_ptr(), out.data_ptr(), n, p, stream),
                     "row_gather")
     return out if pad_rows else out.reshape(tuple(idx.shape) + (p,))

@@ -108,7 +108,7 @@ def scatter_plan(idx: torch.Tensor, n_rows: int,
     flat = idx.reshape(-1).contiguous()
     buf, order, offsets = _plan_buffers(flat.numel(), n_rows, idx.device)
     with _on(idx.device):
-        scatter_plan.launches += 1
+        build.count_launch(scatter_plan)
         build.check(_entries()[1](flat.data_ptr(), flat.numel(), n_rows, order.data_ptr(),
                                   offsets.data_ptr(), buf.data_ptr(), _stream(idx.device)),
                     "scatter_plan")
@@ -149,7 +149,7 @@ def row_scatter(idx: torch.Tensor, g: torch.Tensor, n_rows: int, impl: str = "au
         raise ValueError("row_scatter: the plan was made for other indices")
     out = torch.empty((n_rows, width), dtype=g.dtype, device=g.device)
     with _on(g.device):
-        row_scatter.launches += 1
+        build.count_launch(row_scatter)
         build.check(_entries()[2](g.data_ptr(), order.data_ptr(), offsets.data_ptr(),
                                   out.data_ptr(), n_rows, width, _stream(g.device)), "row_scatter")
     return out

@@ -62,7 +62,7 @@ def seg_copy(sp: torch.Tensor, starts: torch.Tensor, k_pad: int,
                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(sp.device):
         stream = torch.cuda.current_stream(sp.device).cuda_stream
-        seg_copy.launches += 1
+        build.count_launch(seg_copy)
         build.check(fn(sp.data_ptr(), starts.data_ptr(), out.data_ptr(),
                        n_tiles, k_pad, p, stream), "seg_copy")
     return out

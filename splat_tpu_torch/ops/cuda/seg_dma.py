@@ -49,7 +49,7 @@ def seg_dma(sp: torch.Tensor, starts: torch.Tensor, k_pad: int, tps: int = 4, al
         stream = torch.cuda.current_stream(sp.device).cuda_stream
         head = (sp.data_ptr(), starts.data_ptr(), out.data_ptr(), n_tiles, sp.shape[0], k_pad,
                 p, tps)
-        seg_dma.launches += 1
+        build.count_launch(seg_dma)
         if align:
             fn = build.entry("seg_dma", "seg_dma_aligned_f32",
                              [ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr])

@@ -41,6 +41,16 @@ CASES = [
 ]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """MKL's threaded float32 exp costs milliseconds per small call here, and
+    the suite's xdist workers would each start a full intra-op pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("tile_size,n_samples,rs,row_off", CASES)
 @pytest.mark.parametrize("layout", ["packed", "gpacked"])
 def test_rasterize_bwd_plain_matches_pallas(tile_size, n_samples, rs, row_off, layout):

@@ -96,7 +96,7 @@ def test_parse_cli_matches_jax_parser(argv, tmp_path):
     assert dataclasses.replace(tcfg.load_config(tmp_path / "j.json"), device="cuda") == got
 
 
-def test_parse_cli_errors_and_unported_options():
+def test_parse_cli_errors_and_unported_options(tmp_path):
     for mod in (jcfg, tcfg):
         with pytest.raises(ValueError, match="unknown flag"):
             mod.parse_cli(["--pipeline.nothing", "1"])
@@ -108,8 +108,10 @@ def test_parse_cli_errors_and_unported_options():
     assert "--pipeline.model.blur-samples" in tcfg.help_text()
     with pytest.raises(NotImplementedError, match="multi-device"):
         tcfg.parse_cli(["--mesh.enabled", "True"])
-    with pytest.raises(NotImplementedError, match="viewer"):
-        t_fit.main(["--data", "nowhere", "--vis", "viewer", "--device", "cpu"])
+    # the live viewer is ported: `--vis viewer` gets as far as reading the scene
+    with pytest.raises(FileNotFoundError, match="nowhere"):
+        t_fit.main(["--data", "nowhere", "--vis", "viewer", "--device", "cpu",
+                    "--output-dir", str(tmp_path)])
     with pytest.raises(SystemExit):
         t_fit.main(["--device", "cpu"])
 

@@ -29,7 +29,9 @@ kernel route against the
 plain route (impl="torch"):
 each leaf within 1e-3 * max|leaf gradient|; and the kernel route's
 gradients are bitwise repeatable (no float atomics anywhere).
-row_gather and both seg_dma variants move bits (exact). row_scatter adds each
+row_gather and both seg_dma variants move bits (exact). The reference renderer
+(`ops/reference.py`, tile emulation on) holds the kernel route's images to
+the CPU test's 1e-5. row_scatter adds each
 destination row's contributors in index order: bitwise repeatable, and within
 1e-5 of max|column| of a float64 sum rounded to float32; bitwise the
 sequential loop (np.add.at), and its plan kernels bitwise the stable sort of
@@ -111,7 +113,8 @@ def _inputs(dev, tile_size):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("tile_size,n_samples,row_off",
-                         [(16, 5, 0.0), (16, 1, 0.0), ((16, 8), 5, 8.0), (8, 16, 0.0)])
+                         [(16, 5, 0.0), (16, 1, 0.0), (16, 2, 0.0), (16, 3, 8.0), (16, 4, 0.0),
+                          ((16, 8), 5, 8.0), (8, 16, 0.0)])
 def test_kernels_match_plain_on_card(cuda_device, tile_size, n_samples, row_off):
     lists, sp, motion = _inputs(cuda_device, tile_size)
     assert int(lists.counts.max()) == K, "one tile must be full"
@@ -166,7 +169,8 @@ def test_render_camera_cuda_matches_torch_route(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("tile_size,n_samples,row_off",
-                         [(16, 5, 0.0), (16, 1, 0.0), ((16, 8), 5, 8.0), (8, 16, 0.0)])
+                         [(16, 5, 0.0), (16, 1, 0.0), (16, 2, 0.0), (16, 3, 8.0), (16, 4, 0.0),
+                          ((16, 8), 5, 8.0), (8, 16, 0.0)])
 def test_bwd_kernel_matches_plain_on_card(cuda_device, tile_size, n_samples, row_off):
     lists, sp, motion = _inputs(cuda_device, tile_size)
     blocks = seg_copy(sp, lists.starts, K, impl="cuda")
@@ -483,3 +487,54 @@ def test_chunk_cumsum_seq_takes_any_chunk_on_card(cuda_device):
                                atol=1e-6 * want.abs().max().item(), rtol=0)
     with pytest.raises(ValueError, match="32 lanes"):
         chunk_cumsum(x, variant="warp", impl="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rs", [0.0, 0.03], ids=["global", "rolling"])
+def test_reference_renderer_holds_the_kernel_route_on_card(cuda_device, rs):
+    """`ops.reference.render_reference` with tile emulation against the kernel
+    route's `rasterize`: rgb, alpha, T and the alpha-weighted depth sum within
+    1e-5, the tolerance of the CPU test against the plain route."""
+    from splat_tpu_torch.ops import projection
+    from splat_tpu_torch.ops.reference import render_reference
+
+    rng = np.random.default_rng(11)
+    n, res = 1500, 128
+    f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32, device=cuda_device)  # noqa: E731
+    means = rng.normal(size=(n, 3)) * np.array([0.7, 0.6, 1.2]) + np.array([0, 0, 4.0])
+    proj = projection.project_gaussians(
+        f32(means), f32(np.exp(rng.normal(size=(n, 3)) * 0.6) * 0.04),
+        f32(rng.normal(size=(n, 4))), torch.eye(3, device=cuda_device),
+        torch.zeros(3, device=cuda_device), 0.9 * res, 0.9 * res, res / 2, res / 2, res, res,
+        lin_vel=f32([0.4, -0.2, 0.1]), ang_vel=f32([0.05, 0.1, -0.02]))
+    colors, opac = f32(rng.uniform(0, 1, (n, 3))), f32(rng.uniform(0.3, 0.95, n))
+    bg = f32([0.1, 0.2, 0.3])
+    before = rk.rasterize_fwd.launches
+    got = rasterize.rasterize(proj, colors, opac, res, res, bg, rolling_shutter_time=rs,
+                              tile_size=16, max_per_tile=512, max_tiles_per_gaussian=16,
+                              impl="cuda")
+    assert rk.rasterize_fwd.launches > before
+    want = render_reference(proj, colors, opac, res, res, bg, rolling_shutter_time=rs, chunk=64,
+                            tile_size=16, max_tiles_per_gaussian=16)
+    assert float(want.alpha.max()) > 0.5
+    for name in ("rgb", "alpha", "transmittance"):
+        torch.testing.assert_close(getattr(got, name), getattr(want, name), atol=1e-5, rtol=0)
+    torch.testing.assert_close(got.depth * got.alpha, want.depth * want.alpha, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_render_tools_round_trip_on_card(cuda_device, tmp_path):
+    """A render on the card through `colorize_depth` and `write_png` decodes
+    to the same bytes (the tools need no PIL or matplotlib there)."""
+    from splat_tpu_torch.cli.render_model import colorize_depth, to_uint8
+    from splat_tpu_torch.data.png import decode_png, encode_png, read_png, write_png
+
+    params, cams = _model(cuda_device)
+    cfg = sf.SplatfactoConfig(max_per_tile=K)
+    out = sf.render_camera(params, cams, cfg, 3, torch.zeros(3, device=cuda_device))
+    img = to_uint8(np.clip(out.rgb.cpu().numpy(), 0, 1))
+    depth = colorize_depth(out.depth.cpu().numpy(), out.alpha.cpu().numpy())
+    assert img.std() > 0 and depth.std() > 0
+    write_png(tmp_path / "rgb.png", img)
+    np.testing.assert_array_equal(read_png(tmp_path / "rgb.png"), img)
+    np.testing.assert_array_equal(decode_png(encode_png(depth)), depth)

@@ -21,6 +21,16 @@ from splat_tpu_torch.ops import sh as tsh
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """MKL's threaded float32 exp costs milliseconds per small call here, and
+    the suite's xdist workers would each start a full intra-op pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.tensor(np.asarray(a, np.float32))
 

@@ -38,6 +38,16 @@ K = 128
 IMG_W, IMG_H = 48, 32
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """MKL's threaded float32 exp costs milliseconds per small call here, and
+    the suite's xdist workers would each start a full intra-op pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _scene(tile_size, n=220, seed=1):
     """JAX-projected scene binned by JAX: (proj, colors, opac, lists)."""
     rng = np.random.default_rng(seed)

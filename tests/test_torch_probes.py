@@ -45,6 +45,16 @@ from splat_tpu_torch.ops.cuda.seg_dma import seg_dma
 T, K, N, P = 24, 32, 500, 16
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """MKL's threaded float32 exp costs milliseconds per small call here, and
+    the suite's xdist workers would each start a full intra-op pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _gather_inputs():
     rng = np.random.default_rng(0)
     idx = rng.integers(0, N, size=(T, K)).astype(np.int32)

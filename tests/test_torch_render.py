@@ -30,6 +30,16 @@ from splat_tpu_torch.ops import rasterize as trast
 N_CAMS = 4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """MKL's threaded float32 exp costs milliseconds per small call here, and
+    the suite's xdist workers would each start a full intra-op pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _configs(camera_mode="SO3xR3", vel_enabled=True, zero_vel=False, tile=8, **kw):
     """Matching (jax_config, port_config)."""
     common = dict(blur_samples=5, sh_degree=3, tile_size=tile, max_per_tile=128,

@@ -27,6 +27,16 @@ CFG = dict(warmup_length=10, refine_every=10, stop_split_at=1000, densify_grad_t
            densify_size_thresh=0.01, cull_alpha_thresh=0.1, cull_scale_thresh=0.5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """MKL's threaded float32 exp costs milliseconds per small call here, and
+    the suite's xdist workers would each start a full intra-op pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _state(n_alive, low_opacity=(), scales=0.004, huge=(), hot=(), seed=0):
     """A capacity-C cloud with the first n_alive slots alive. low_opacity:
     slots below the cull threshold; scales: the common scale (small: clone,

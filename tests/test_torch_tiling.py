@@ -18,6 +18,16 @@ FIELDS = ("indices", "counts", "starts", "sorted_ids", "entry_slots", "overflow"
           "clipped", "entry_overflow")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """MKL's threaded float32 exp costs milliseconds per small call here, and
+    the suite's xdist workers would each start a full intra-op pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _projected(n=300, seed=0, stack=0):
     """JAX-projected Gaussians as numpy, with velocities; `stack` of them
     piled onto one spot so that tile overflows."""

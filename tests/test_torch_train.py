@@ -62,6 +62,16 @@ CASES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """MKL's threaded float32 exp costs milliseconds per small call here, and
+    the suite's xdist workers would each start a full intra-op pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _targets(n, seed=9):
     return np.random.default_rng(seed).uniform(0.0, 1.0, size=(n, H, W, 3)).astype(np.float32)
 

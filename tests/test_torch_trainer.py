@@ -56,6 +56,16 @@ from splat_tpu_torch.models.convert import (named_leaves, optimizer_state_from_n
 W, H = 48, 32
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """MKL's threaded float32 exp costs milliseconds per small call here, and
+    the suite's xdist workers would each start a full intra-op pool."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _tree(jparams):
     tree = {k: ({kk: np.asarray(vv) for kk, vv in v.items()} if isinstance(v, dict)
                 else np.asarray(v))
