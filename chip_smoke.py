@@ -110,7 +110,32 @@ Phases, each of which raises (and the script exits nonzero) on failure:
      (2,000 Gaussians at 256x256, rolling shutter 0.03 s, tile emulation):
      rgb, alpha, T and the alpha-weighted depth sum within 1e-5, the CPU
      test's tolerance;
- 10. print the `kernels` JSON line (launches from the loop's 200 steps, and
+ 10. a phone capture's inputs at full width (`capture_phase`): phase 8's
+     scene directory (1024x1024, 16 frames, 100,000 Gaussians) written as
+     the external tools would have written it, the VIO's `transforms.json`
+     (velocities, blur scores) and COLMAP's text model (PINHOLE camera,
+     world-to-camera quaternions, the generator's Gaussian centres and
+     colours as points3D.txt) in a world that is a similarity transform of
+     the VIO's; then `run_colmap --text-model`, `combine`,
+     `train_eval_split_by_blur_score`, `cli.fit` with `cli/train.py`'s
+     flagship flags for colmap-sai-cli-vels-blur-scored (300 steps on all
+     100,000 seed points) and `cli.evaluate` with LPIPS weights drawn from a
+     seed. Gates: the merged poses map back to the generator's within 1e-4
+     once the similarity is undone; the linear velocities equal s R times
+     the VIO's in the merged world (angular ones carried as they are); the
+     split keeps the least blurred frame of every eight; the generator's
+     Gaussians, taken through the similarity and the parser's transform,
+     render the parsed eval cameras at 35 dB against their decoded frames
+     (15 dB less on another camera's); the four path
+     kernels launch on every step of the fit; the eval PSNR rises 0.5 dB;
+     one more step of the fit's trainer (outside the counted path) has its
+     launches recorded and held against the plain versions at phase 2's
+     tolerances (the compositors at S = 3 and 2, rolling shutter, 1024 px;
+     seg_copy and row_gather bitwise); metrics.json has a finite lpips; LPIPS on the card within 1e-5 of the
+     CPU's; `utils.trace_report` over a `torch.profiler` trace of five of
+     the fit's steps lists the four path kernels. Prints each tool's
+     seconds, steps/s, LPIPS's ms per eval image and the trace's table;
+ 11. print the `kernels` JSON line (launches from the loop's 200 steps, and
      from the probes' timing loops for the four probe kernels; the launches of
      every driven path under `launches_by_path`), the card's name and power
      limit as nvidia-smi gives them, and the result line.
@@ -121,6 +146,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import shutil
 import statistics
 import sys
@@ -219,6 +245,15 @@ LIVE_STEPS = 60
 # tests/test_torch_reference.py (rgb, alpha, T and the alpha-weighted depth
 # sum within 1e-5)
 REF_GAUSSIANS, REF_RES, REF_RS, REF_ATOL = 2000, 256, 0.03, 1e-5
+# phase 10: phase 8's scene as a phone capture (COLMAP's world a similarity
+# of the VIO's), through the real-capture tools and the flagship variant of
+# cli/train.py for the colmap-sai-cli-vels-blur-scored dataset
+CAPTURE_DATASET = "colmap-sai-cli-vels-blur-scored"
+CAPTURE_FEATURES = {"motion_blur", "rolling_shutter", "pose_opt", "velocity_opt"}
+CAPTURE_POSE_ATOL = 1e-4         # merged poses against the generator's, the similarity undone
+CAPTURE_VEL_RTOL = 1e-6          # velocities in the merged world against s R (the VIO's)
+LPIPS_RTOL = 1e-5                # LPIPS on the card against the CPU, one image pair
+PROFILED_STEPS = 5
 
 
 def check(ok: bool, what: str) -> None:
@@ -723,6 +758,260 @@ def render_tools_phase(root: Path, reset_counts, stacked_shares) -> dict:
     return {"launches": by_path, "errs": errs}
 
 
+def fit_truth_table(t, means, scales, quats, truth) -> tuple[float, float]:
+    """Render the generator's Gaussians (already in the trainer's world) on
+    every eval camera of trainer t against every decoded eval frame: the
+    least PSNR of a camera on its own frame and the most on another's. The
+    trainer's model is put back afterwards."""
+    from splat_tpu_torch.models import splatfacto as sf
+    from splat_tpu_torch.ops.ssim import psnr
+
+    dev = t.params.gaussians.means.device
+    cap_n, n = t.params.gaussians.alive.shape[0], means.shape[0]
+
+    def padded(x, fill=0.0):
+        out = torch.full((cap_n, *x.shape[1:]), fill, dtype=torch.float32, device=dev)
+        out[:n] = torch.as_tensor(x, dtype=torch.float32, device=dev)
+        return out
+
+    opac = truth["opacities"].detach().to(dev).clamp(1e-6, 1 - 1e-6)
+    q = padded(quats)
+    q[n:, 0] = 1.0
+    initial = t.params
+    t.params = initial._replace(
+        gaussians=sf.GaussianParams(
+            means=padded(means), scales_log=padded(np.log(scales), -8.0), quats=q,
+            opacities_logit=padded(torch.log(opac / (1 - opac))),
+            features_dc=padded((truth["colors"].detach().to(dev) - 0.5) / 0.28209479177387814),
+            features_rest=torch.zeros_like(initial.gaussians.features_rest),
+            alive=padded(torch.ones(n))),
+        background_logit=torch.full((3,), -30.0, device=dev))      # the scene's black
+    try:
+        n_eval = len(t.eval_cams)
+        table = [[float(psnr(t.render_eval(i), t._eval_imgs_dev[j])) for j in range(n_eval)]
+                 for i in range(n_eval)]
+    finally:
+        t.params = initial
+    return (min(table[i][i] for i in range(n_eval)),
+            max(table[i][j] for i in range(n_eval) for j in range(n_eval) if i != j))
+
+
+def capture_phase(work: Path, scene_dir: Path, generated: dict, reset_counts,
+                  stacked_shares) -> dict:
+    """Phase 10: phase 8's scene as a phone capture. It writes what the
+    external tools would have: the VIO's directory (`sai-cli`'s
+    transforms.json with velocities and blur scores) and COLMAP's text model
+    of the same frames and of the generator's Gaussian centres and colours,
+    in a world that is a similarity transform of the VIO's. Then, each
+    through its `main` as a user runs it: `run_colmap --text-model`,
+    `combine`, `train_eval_split_by_blur_score`, `cli.fit` with the flagship
+    flags for the blur-scored dataset (its launches counted from 0), and
+    `cli.evaluate` with LPIPS weights drawn from a seed. One more step of
+    the fit's trainer, outside every counted path, has its kernel launches
+    recorded (`KernelCapture`) and held against the plain versions at the
+    capture's own shapes (1024 px, the compositors at each anchor group's
+    sample count, rolling shutter, pose and velocity optimisation). Last,
+    five of the fit's steps under `torch.profiler`, ranked by
+    `utils.trace_report`."""
+    from splat_tpu_torch.cli import combine as cli_combine
+    from splat_tpu_torch.cli import evaluate as cli_evaluate
+    from splat_tpu_torch.cli import fit as cli_fit
+    from splat_tpu_torch.cli import run_colmap as cli_run_colmap
+    from splat_tpu_torch.cli import train as cli_train
+    from splat_tpu_torch.cli import train_eval_split_by_blur_score as cli_split
+    from splat_tpu_torch.data import dataparser, dataset, ply
+    from splat_tpu_torch.engine import config as run_config
+    from splat_tpu_torch.engine import trainer
+    from splat_tpu_torch.ops import cuda as kcuda
+    from splat_tpu_torch.ops import lpips
+    from splat_tpu_torch.utils import trace_report
+    from splat_tpu_torch.utils.profiling import time_cuda
+
+    cap = load_probe("synthetic_capture_torch")
+    root = work / "capture"
+    shutil.rmtree(root, ignore_errors=True)
+    proc = root / "inputs-processed"
+    secs = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    # the external tools' outputs
+    sim = cap.similarity(SEED)
+    vio = proc / "sai-cli" / "rec0"
+    truth = generated["gaussians"]
+    colours = np.round(np.clip(truth["colors"].detach().cpu().numpy(), 0.0, 1.0) * 255)
+    timed("write_inputs", lambda: (
+        cap.write_vio_dir(scene_dir, vio),
+        cap.write_colmap_text(scene_dir, root / "colmap_text",
+                              truth["means"].detach().cpu().numpy(), colours, sim)))
+    # the tools, as a user runs them
+    (colmap_dir,) = timed("run_colmap", lambda: cli_run_colmap.main(
+        [str(vio), "--text-model", str(root / "colmap_text"), "--processed-prefix", str(proc)]))
+    (vels,) = timed("combine", lambda: cli_combine.main(
+        [str(colmap_dir), str(vio), "--processed-prefix", str(proc)]))
+    (scored,) = timed("split", lambda: cli_split.main(
+        ["colmap-sai-cli-vels", "all", "--processed-prefix", str(proc)]))
+    check(scored == proc / CAPTURE_DATASET / "rec0", f"the split writes {CAPTURE_DATASET}")
+
+    merged = json.loads((vels / "transforms.json").read_text())
+    own = {Path(f["file_path"]).name: f
+           for f in json.loads((scene_dir / "transforms.json").read_text())["frames"]}
+    check(len(merged["frames"]) == FIT_FRAMES, "every frame merged")
+    rot = cap.world_rotation(sim)
+    pose_err, vel_err, ang_same = 0.0, 0.0, True
+    for f in merged["frames"]:
+        src = own[Path(f["file_path"]).name]
+        c2w = np.asarray(src["transform_matrix"])
+        pose_err = max(pose_err, float(np.abs(cap.vio_pose(f["transform_matrix"], sim)
+                                              - c2w).max()))
+        world = np.asarray(f["transform_matrix"])[:3, :3] @ f["camera_linear_velocity"]
+        want = sim[0] * rot @ (c2w[:3, :3] @ src["camera_linear_velocity"])
+        vel_err = max(vel_err, float(np.abs(world - want).max()
+                                     / max(np.abs(want).max(), 1e-12)))
+        ang_same &= f["camera_angular_velocity"] == src["camera_angular_velocity"]
+    print(f"capture: similarity scale {sim[0]:.6f}; merged poses back in the generator's frame "
+          f"within {pose_err:.3g}; linear velocities in the merged world against s R times the "
+          f"VIO's within {vel_err:.3g} relative; angular velocities carried as they were: "
+          f"{ang_same}")
+    check(pose_err <= CAPTURE_POSE_ATOL, "the merged poses map back to the generator's")
+    check(vel_err <= CAPTURE_VEL_RTOL and ang_same,
+          "the velocities are rotated into COLMAP's world and scaled by its scale")
+    frames = sorted(own.values(), key=lambda f: f["file_path"])
+    want_eval = {"eval_" + Path(min(frames[i:i + 8], key=lambda f: f["motion_blur_score"])
+                                ["file_path"]).name for i in range(0, len(frames), 8)}
+    got_eval = {p.name for p in (scored / "images").glob("eval_*")}
+    check(got_eval == want_eval and len(list((scored / "images").iterdir())) == FIT_FRAMES,
+          "the split keeps the least blurred frame of every eight for eval")
+    n_points = ply.read_ply(scored / "sparse_pc.ply")["xyz"].shape[0]
+    check(n_points == N_GAUSS, "COLMAP's points become the seed cloud")
+
+    # the fit, on the flagship flags of cli/train.py for this dataset
+    name, flags = cli_train.flags_to_variant_name_and_cmd(CAPTURE_FEATURES, CAPTURE_DATASET,
+                                                          False)
+    argv = ["splatfacto", "--data", str(scored), "--output-dir", str(root / "outputs"),
+            "--experiment-name", f"{CAPTURE_DATASET}/{name}/rec0", "--timestamp", "run",
+            "--max-num-iterations", str(FIT_STEPS), "--steps-per-eval", str(FIT_STEPS // 3),
+            "--steps-per-save", str(FIT_STEPS), "--seed", str(SEED), "--trainer.log-every", "50",
+            "--pipeline.model.initial-capacity", str(LOOP_CAPACITY), *flags,
+            "nerfstudio-data", "--eval-mode", cli_train.dataset_params(CAPTURE_DATASET)["eval_mode"]]
+    cfg0 = run_config.parse_cli(argv)
+    scene = dataparser.parse_scene(cfg0.data, cfg0.dataparser)
+    train_imgs, eval_imgs = dataset.load_scene_images(scene)
+    check(len(scene.eval_cameras) == len(want_eval) and scene.points_xyz.shape[0] == N_GAUSS,
+          "the parsed capture: the eval frames by file name, every seed point")
+    fresh = trainer.Trainer(scene, cfg0.model,
+                            dataclasses.replace(cfg0.trainer, max_steps=FIT_STEPS, seed=cfg0.seed),
+                            train_images=train_imgs, eval_images=eval_imgs)
+    before = fresh.evaluate()["psnr"]
+
+    # the data path's gate, as phase 8's: the generator's Gaussians taken into
+    # COLMAP's world by the similarity, then through the parser's transform
+    # (applied_transform and the orientation included) and scale, rendered on
+    # the parsed eval cameras against the decoded eval frames
+    s_, r_, t_ = sim
+    tf = np.asarray(scene.transform, dtype=np.float64)
+    turn = tf[:, :3] @ r_
+    f64 = {k: truth[k].detach().cpu().double().numpy() for k in ("means", "scales", "quats")}
+    means = ((s_ * f64["means"] @ r_.T + t_) @ tf[:, :3].T + tf[:, 3]) * scene.scale
+    qw, q = cap.matrix_to_quat(turn), f64["quats"] / np.linalg.norm(f64["quats"], axis=1,
+                                                                    keepdims=True)
+    quats = np.concatenate([qw[0] * q[:, :1] - (q[:, 1:] @ qw[1:])[:, None],
+                            qw[0] * q[:, 1:] + q[:, :1] * qw[1:] + np.cross(qw[1:], q[:, 1:])], 1)
+    truth_table = fit_truth_table(fresh, means, f64["scales"] * s_ * scene.scale, quats, truth)
+    print(f"capture: the generator's Gaussians through the similarity and the parsed eval cameras "
+          f"against the decoded eval frames: psnr {truth_table[0]:.3f} dB on a camera's own frame "
+          f"(the least), {truth_table[1]:.3f} on another's (the most); the initial model "
+          f"{before:.3f}")
+    check(truth_table[0] >= FIT_TRUTH_PSNR_DB and truth_table[1] <= truth_table[0] - 15.0,
+          "the merged capture reproduces the generator's scene")
+    os.environ.pop(lpips.ENV_VAR, None)
+    reset_counts()
+    run_dir = timed("fit", lambda: cli_fit.main(argv))
+    torch.cuda.synchronize()
+    launches = kcuda.path_launches()
+    for k, n in launches.items():
+        check(n >= FIT_STEPS, f"{k} launched on every step of the capture's fit")
+    metrics = json.loads((run_dir / "metrics.json").read_text())
+    records = [json.loads(line)
+               for line in (run_dir / "metrics_train.jsonl").read_text().splitlines()]
+    evals = [r["eval_psnr"] for r in records if "eval_psnr" in r]
+    steps = [r for r in records if "loss" in r]
+    check(all(r["n_alive"] == N_GAUSS for r in steps), f"every step on {N_GAUSS} Gaussians")
+    print(f"capture: {name} ({cfg0.model.blur_samples} blur samples in "
+          f"{fresh.model_config.blur_anchors} anchors) {FIT_STEPS} steps at "
+          f"{FIT_STEPS / metrics['train_time_seconds']:.2f} steps/s with evals and the save, "
+          f"{statistics.median(r['steps_per_s'] for r in steps):.2f} in the logged windows; "
+          f"eval psnr {before:.3f} -> " + " -> ".join(f"{v:.3f}" for v in evals)
+          + f" dB; launches {launches}")
+    check(len(evals) == 3 and evals[-1] >= before + FIT_PSNR_GAIN_DB,
+          f"the capture's eval PSNR rises by {FIT_PSNR_GAIN_DB} dB")
+
+    # one step of the fit's trainer (a comparison, outside every counted
+    # path, and the profiler's warm-up): its launches against the plain versions
+    with KernelCapture("a capture fit step at 1024 px") as step_cap:
+        fresh.run(1)
+        torch.cuda.synchronize()
+    for k in ("rasterize_fwd", "rasterize_bwd", "seg_copy", "row_gather"):
+        check(step_cap.kinds(k), f"{step_cap.label}: {k} launched and recorded")
+    fwd_s = [k[0] for k in step_cap.kinds("rasterize_fwd")]
+    bwd_s = [k[0] for k in step_cap.kinds("rasterize_bwd")]
+    check(fwd_s == bwd_s and len(step_cap.kinds("row_gather")) == 2,
+          "the step's forward and backward compositors at the same sample counts, row_gather at "
+          "both of its shapes")
+    print(f"capture: one fit step at {fresh.model_config.blur_samples} blur samples in "
+          f"{fresh.model_config.blur_anchors} anchor groups: compositors at S in "
+          f"{sorted(set(fwd_s))}")
+    errs = step_cap.hold(stacked_shares)
+
+    # five of the fit's steps under the profiler, ranked by the trace report
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fresh.run(PROFILED_STEPS)
+        torch.cuda.synchronize()
+    trace_path = root / "fit_trace.json"
+    prof.export_chrome_trace(str(trace_path))
+    del fresh
+    table = trace_report.report(trace_path, iters=PROFILED_STEPS, top=8)
+    kernel_names = " ".join(k.name for k in trace_report.kernel_stats(
+        trace_report.load_trace(trace_path)))
+    print(f"capture: trace_report over {PROFILED_STEPS} of the fit's steps:\n{table}")
+    for k in ("rasterize_bwd", "rasterize_fwd", "seg_copy", "row_gather"):
+        check(k in kernel_names, f"the trace report lists {k}")
+
+    # LPIPS: cli.evaluate with weights drawn from a seed, and the card against the CPU
+    weights_file = root / "lpips_alex.npz"
+    np.savez(weights_file, **lpips.random_weights(SEED))
+    os.environ[lpips.ENV_VAR] = str(weights_file)
+    try:
+        out = timed("evaluate", lambda: cli_evaluate.main(["--load-config",
+                                                           str(run_dir / "config.json")]))
+        metrics = json.loads((run_dir / "metrics.json").read_text())
+        _, evaluator = cli_evaluate.load_trainer_from_config(run_dir / "config.json")
+        pred, gt = evaluator.render_eval(0), evaluator._eval_imgs_dev[0]
+        w = lpips.load_weights(pred.device)
+        on_card = float(lpips.lpips_pair(pred, gt, w))
+        on_cpu = float(lpips.lpips_pair(pred.cpu(), gt.cpu(), lpips.load_weights("cpu")))
+        lpips_ms = time_cuda(lambda: lpips.lpips_pair(pred, gt, w), 5)
+    finally:
+        os.environ.pop(lpips.ENV_VAR, None)
+    rel = abs(on_card - on_cpu) / abs(on_cpu)
+    print(f"capture: cli.evaluate psnr {out['results']['psnr']:.4f} ssim "
+          f"{out['results']['ssim']:.4f} lpips {metrics['results'].get('lpips')} (random "
+          f"weights); LPIPS of eval image 0 on the card ({pred.device}) {on_card!r}, on the CPU "
+          f"{on_cpu!r} "
+          f"(relative diff {rel:.3g}); {lpips_ms:.3f} ms per {RES}x{RES} eval image")
+    check(np.isfinite(metrics["results"].get("lpips", np.nan)), "metrics.json has a finite lpips")
+    check(rel <= LPIPS_RTOL, f"LPIPS on the card within {LPIPS_RTOL} of the CPU's")
+    print("capture: seconds per tool: " + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()))
+    del evaluator
+    shutil.rmtree(root, ignore_errors=True)
+    return {"launches": launches, "seconds": secs, "lpips_ms": lpips_ms, "errs": errs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one", file=sys.stderr)
@@ -978,8 +1267,11 @@ def main() -> int:
               and joined.refine_events == events, "both runs refined twice, alike")
         check(events[0]["n_culled"] > 0, "the first refine culled")
         check(worst <= 1e-6, "the run resumed before a refine within 1e-6 of the one that ran through")
-        shutil.rmtree(work, ignore_errors=True)
-        return {"launches": fit_launches}
+        del through, joined
+        for sub in ("outputs", "resumed", "refine"):
+            shutil.rmtree(work / sub, ignore_errors=True)
+        return {"launches": fit_launches, "work": work, "scene_dir": scene_dir,
+                "generated": generated}
 
     dev = torch.device("cuda")
     # phase 1: build and environment
@@ -1627,6 +1919,13 @@ def main() -> int:
                                stacked_probe.shares)
     for kname, err in tools["errs"].items():
         errs[kname] = max(errs[kname], err)
+    t0 = time.perf_counter()
+    capture = capture_phase(fit["work"], fit["scene_dir"], fit["generated"], reset_counts,
+                            stacked_probe.shares)
+    for kname, err in capture["errs"].items():
+        errs[kname] = max(errs[kname], err)
+    print(f"capture: phase 10 took {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(fit["work"], ignore_errors=True)
 
     kernels = [
         {"name": "seg_copy", "route": "cuda", "source": "splat_tpu_torch/ops/cuda/csrc/seg_copy.cu",
@@ -1692,6 +1991,7 @@ def main() -> int:
     ]
     by_path["fit"] = fit["launches"]
     by_path.update(tools["launches"])
+    by_path["capture"] = capture["launches"]
     for kern in kernels:
         if kern["name"] in launches:
             kern["launches_by_path"] = {path: counts[kern["name"]]

@@ -4,6 +4,7 @@ over the port's paths (chip_smoke.py's scene, model and config), one CUDA
 device.
 
     python3 scripts_dev/profile_render_torch.py [--train | --fit] [--out outputs/render_trace.json]
+        [--report]
 
 Without --train it profiles a render of the 4 cameras; with --train, 4
 `train_step`s (one per camera, from step 3000, after 8 warm-up steps) on
@@ -13,7 +14,9 @@ directory, parsed and configured by its `cli.fit` flags). Prints the wall time p
 profiled window, the device's busy share (the sum of every kernel's device
 time over wall time; everything runs on one stream, so kernels do not
 overlap), the kernels with the most device time and the ops with the most
-host time, and writes a Chrome trace.
+host time, and writes a Chrome trace. With --report it also prints
+`splat_tpu_torch.utils.trace_report`'s table of that trace (kernels ranked
+by device time per camera or step, the busy share and the idle gaps).
 """
 from __future__ import annotations
 
@@ -37,6 +40,8 @@ def main() -> int:
     ap.add_argument("--train", action="store_true", help="profile train steps, not renders")
     ap.add_argument("--fit", action="store_true",
                     help="profile Trainer.run steps on the scene directory of chip_smoke.py")
+    ap.add_argument("--report", action="store_true",
+                    help="print utils.trace_report's table of the trace written to --out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_render_torch: needs a CUDA device", file=sys.stderr)
@@ -129,6 +134,10 @@ def main() -> int:
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(args.out)
     print(f"trace: {args.out}")
+    if args.report:
+        from splat_tpu_torch.utils import trace_report
+
+        print(trace_report.report(args.out, iters=n, top=args.top))
     return 0
 
 

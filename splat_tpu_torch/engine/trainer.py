@@ -52,6 +52,7 @@ from ..device import resolve_device
 from ..models import splatfacto as sf
 from ..models import strategy as st
 from ..models.convert import named_leaves
+from ..ops import lpips as lpips_mod
 from ..ops.ssim import psnr as psnr_fn
 from ..ops.ssim import ssim as ssim_fn
 from ..utils.profiling import StepTimer
@@ -542,12 +543,17 @@ class Trainer:
 
     @torch.no_grad()
     def evaluate(self) -> dict:
-        """Mean PSNR and SSIM over the eval cameras."""
-        metrics = {"psnr": [], "ssim": []}
+        """Mean PSNR and SSIM over the eval cameras, and LPIPS when its
+        weights file is configured (`ops/lpips.py`; the key is left out
+        without one, and any other failure of the metric raises)."""
+        weights = lpips_mod.load_weights(self.device)
+        metrics = {"psnr": [], "ssim": []} | ({"lpips": []} if weights is not None else {})
         for i in range(len(self.eval_cams)):
             pred, gt = self.render_eval(i), self._eval_imgs_dev[i]
             metrics["psnr"].append(float(psnr_fn(pred, gt)))
             metrics["ssim"].append(float(ssim_fn(pred, gt)))
+            if weights is not None:
+                metrics["lpips"].append(float(lpips_mod.lpips_pair(pred, gt, weights)))
         return {k: float(np.mean(v)) for k, v in metrics.items() if v}
 
     # ------------------------------------------------------------ checkpoint

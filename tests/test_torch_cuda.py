@@ -538,3 +538,21 @@ def test_render_tools_round_trip_on_card(cuda_device, tmp_path):
     write_png(tmp_path / "rgb.png", img)
     np.testing.assert_array_equal(read_png(tmp_path / "rgb.png"), img)
     np.testing.assert_array_equal(decode_png(encode_png(depth)), depth)
+
+
+@pytest.mark.cuda
+def test_lpips_on_card_matches_cpu(cuda_device):
+    """LPIPS of one seeded pair on the card against the CPU: the same
+    float32 graph, TF32 off, within 1e-5 relative (cuDNN and the CPU
+    convolutions sum in other orders)."""
+    from splat_tpu_torch.ops import lpips
+
+    rng = np.random.default_rng(0)
+    x = rng.uniform(size=(96, 80, 3)).astype(np.float32)
+    y = np.clip(x + rng.normal(size=x.shape) * 0.1, 0, 1).astype(np.float32)
+    w = {k: torch.from_numpy(v) for k, v in lpips.random_weights(seed=0).items()}
+    cpu = float(lpips.lpips_pair(torch.from_numpy(x), torch.from_numpy(y), w))
+    card = float(lpips.lpips_pair(torch.from_numpy(x).to(cuda_device),
+                                  torch.from_numpy(y).to(cuda_device),
+                                  {k: v.to(cuda_device) for k, v in w.items()}))
+    assert cpu > 0 and abs(card - cpu) <= 1e-5 * cpu, (card, cpu)

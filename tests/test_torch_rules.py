@@ -1,5 +1,6 @@
-"""Rules the port keeps: it imports no JAX and nothing of the JAX package (its
-package, `chip_smoke.py` and the `scripts_dev/*_torch.py` entry points), it
+"""Rules the port keeps: it imports no JAX, nothing of the JAX package and none
+of the JAX scripts in `cli/` (its package, `chip_smoke.py` and the
+`scripts_dev/*_torch.py` entry points), it
 accumulates with no scatter-add outside a kernel's plain version, its entry
 points run on the card unless asked for the CPU, and its weights carry across
 from the JAX package unchanged."""
@@ -16,7 +17,10 @@ from splat_tpu_torch.models import splatfacto as tsf
 from splat_tpu_torch.models.convert import params_from_numpy
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "splat_tpu", "bench")
+# the JAX package, and the JAX command-line scripts of cli/ (imported as a
+# package or, with cli/ on sys.path, by their module names)
+FORBIDDEN = ("jax", "jaxlib", "splat_tpu", "bench", "cli",
+             *sorted(p.stem for p in (ROOT / "cli").glob("*.py")))
 
 
 SCATTER_ADDS = ("index_add_", "index_add", "scatter_add_", "scatter_add", "scatter_reduce_",
