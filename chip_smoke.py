@@ -135,7 +135,24 @@ Phases, each of which raises (and the script exits nonzero) on failure:
      CPU's; `utils.trace_report` over a `torch.profiler` trace of five of
      the fit's steps lists the four path kernels. Prints each tool's
      seconds, steps/s, LPIPS's ms per eval image and the trace's table;
- 11. print the `kernels` JSON line (launches from the loop's 200 steps, and
+ 11. the mesh (`mesh_phase`): the decompositions of `parallel/sharding.py`
+     on the card in this process, each virtual rank in turn through the
+     kernels, on phase 3's scene and camera 0: 4 row strips rendered with
+     their row0 and joined, and an S = 4 exposure split 2 + 2 and summed,
+     each against the full render within phase 2's 1e-4; 4 depth slabs
+     composited apart (reduce=None) and merged with the over-operator,
+     within T_EPS of a colour (a pixel's early stop: each slab composites on
+     where the whole cloud stopped); the packed table's gradient of a
+     seeded cotangent through the strips against the full image's within
+     phase 2's per-column and per-row bounds (all at a K no tile fills);
+     then `cli.fit --mesh.enabled True` on NCCL, one rank per visible card,
+     on phase 8's scene and flags for 50 steps against the same fit without
+     the mesh, in turns (single, mesh, mesh, single): the per-step loss's
+     relative difference within 1e-4 in the median and 1e-3 at its largest,
+     steps/s of all four, rank 0's launches (each path kernel on every
+     step), and one more mesh step in this process recorded by
+     `KernelCapture` and held against the plain versions;
+ 12. print the `kernels` JSON line (launches from the loop's 200 steps, and
      from the probes' timing loops for the four probe kernels; the launches of
      every driven path under `launches_by_path`), the card's name and power
      limit as nvidia-smi gives them, and the result line.
@@ -254,6 +271,11 @@ CAPTURE_POSE_ATOL = 1e-4         # merged poses against the generator's, the sim
 CAPTURE_VEL_RTOL = 1e-6          # velocities in the merged world against s R (the VIO's)
 LPIPS_RTOL = 1e-5                # LPIPS on the card against the CPU, one image pair
 PROFILED_STEPS = 5
+# phase 11: the mesh. Virtual ranks of each decomposition on bench-scene
+# camera 0; the sharded fit against the single-device one on phase 8's scene
+MESH_PARTS = 4                   # row strips and depth slabs
+MESH_STEPS = 50
+MESH_LOSS_REL = {"median": 1e-4, "max": 1e-3}
 
 
 def check(ok: bool, what: str) -> None:
@@ -794,6 +816,183 @@ def fit_truth_table(t, means, scales, quats, truth) -> tuple[float, float]:
         t.params = initial
     return (min(table[i][i] for i in range(n_eval)),
             max(table[i][j] for i in range(n_eval) for j in range(n_eval) if i != j))
+
+
+def mesh_phase(params, cams, cfg, work: Path, scene_dir: Path, reset_counts, stacked_shares,
+               card: str) -> dict:
+    """Phase 11: the mesh. (a) The decompositions of `parallel/sharding.py`
+    on the card, in this process, each virtual rank in turn through the
+    kernels: row strips (each with its `row0`) joined against the full
+    image, a blur split (S = 4 as 2 + 2) summed against the blur mean, depth
+    slabs composited apart and merged with the over-operator against the
+    full render (within the early stop's T_EPS), and the gradient of a
+    seeded cotangent through the strips against the full image's (the packed
+    table's 12 gradient columns, at phase 2's bounds). (b) `cli.fit
+    --mesh.enabled True` on NCCL at world = the visible cards, on phase 8's
+    scene with its flags, for MESH_STEPS steps against the same `cli.fit`
+    without the mesh, in turns: the loss trajectories, steps/s, the mesh
+    path's launches (rank 0's), and one more mesh step in this process
+    recorded by `KernelCapture` and held against the plain versions."""
+    from splat_tpu_torch.cli import fit as cli_fit
+    from splat_tpu_torch.data import dataparser, dataset
+    from splat_tpu_torch.engine import config as run_config
+    from splat_tpu_torch.engine import trainer
+    from splat_tpu_torch.models import splatfacto as sf
+    from splat_tpu_torch.ops import cuda as kcuda
+    from splat_tpu_torch.ops import rasterize
+    from splat_tpu_torch.ops.reference import T_EPS
+    from splat_tpu_torch.parallel import sharding
+    from splat_tpu_torch.parallel.collectives import Axis
+
+    t_phase = time.perf_counter()
+    one = Axis("gauss", 1, 0, (0,))            # a virtual rank holds the whole cloud
+    cam = cams[0]
+    # a depth-list capacity no tile fills: slabs hold fewer rows a tile than
+    # the whole cloud, so a full tile would drop rows there and not here
+    with torch.no_grad():
+        fullest = int(sf.binning_counts(params, cam, cfg).max())
+    cfg = dataclasses.replace(cfg, max_per_tile=max(cfg.max_per_tile,
+                                                    1 << (fullest - 1).bit_length()))
+    full_h, width = cam.height, cam.width
+    strip_h = full_h // MESH_PARTS
+    sh = cfg.sh_degree
+    motion = sf.camera_motion(params, cam, cfg)
+    bg = sf.background_color(params, cfg)
+    g = params.gaussians
+    opac = torch.sigmoid(g.opacities_logit) * g.alive
+    eps = motion.eps
+    t_a = eps.mean()
+    kw = dict(rolling_shutter_time=motion.rs_time, tile_size=cfg.tile_size,
+              max_per_tile=cfg.max_per_tile, max_tiles_per_gaussian=cfg.max_tiles_per_gaussian)
+    errs = {}
+    with torch.no_grad():
+        full = sf.render_camera(params, cam, cfg, sh, bg).rgb
+        strips = torch.cat([sharding._render_strip_linear(
+            params, cam, cfg, sh, bg, strip_h, k * strip_h, (0, eps.shape[0]), one)[0]
+            for k in range(MESH_PARTS)]) / eps.shape[0]
+        errs["strips"] = (strips - full).abs().max().item()
+        cfg4 = dataclasses.replace(cfg, blur_samples=4)
+        full4 = sf.render_camera(params, cam, cfg4, sh, bg).rgb
+        halves = [sharding._render_strip_linear(params, cam, cfg4, sh, bg, full_h, 0, (lo, lo + 2),
+                                                one)[0] for lo in (0, 2)]
+        errs["blur"] = ((halves[0] + halves[1]) / 4 - full4).abs().max().item()
+        proj, colors = sf.subframe_inputs(params, motion, cfg, sh, t_a)
+        table = kcuda.pack_param_table(proj, colors, opac)[:-1]
+        rows = torch.cat([table, proj.extents], dim=1)
+        slab = sharding.slab_ids(table[:, 9], table[:, 8] > 0, MESH_PARTS, one)
+        layers = []
+        for k in range(MESH_PARTS):
+            synth, col, op = sharding._from_rows(rows[slab == k], table.shape[1])
+            layers.append(rasterize.rasterize_fused(synth, col, op, width, full_h,
+                                                    torch.zeros_like(bg), eps=eps - t_a, **kw))
+        rgb, T = sharding.over(torch.stack([o.rgb for o in layers]),
+                               torch.stack([o.transmittance for o in layers]))
+        whole = rasterize.rasterize_fused(proj, colors, opac, width, full_h, bg, eps=eps - t_a, **kw)
+        errs["slabs"] = max((rgb + T[..., None] * bg - whole.rgb).abs().max().item(),
+                            (T - whole.transmittance).abs().max().item())
+        sizes = [int((slab == k).sum()) for k in range(MESH_PARTS)]
+        # a pixel stops once its T falls to T_EPS; each slab starts at T = 1
+        # and composites on past that point, by at most T_EPS of a colour
+        slab_tol = T_EPS * max(1.0, colors.abs().max().item()) + 1e-6
+    cot = torch.rand((full_h, width, 3), device=full.device,
+                     generator=torch.Generator(device=full.device).manual_seed(SEED))
+
+    def table_grad(row0, h):
+        """The packed table's gradient of sum(cot * rgb) over the strip."""
+        p_s, c_s = sf.subframe_inputs(params, motion, cfg, sh, t_a, row0=row0)
+        rows_s = torch.cat([kcuda.pack_param_table(p_s, c_s, opac)[:-1], p_s.extents],
+                           dim=1).detach().requires_grad_(True)
+        synth, col, op = sharding._from_rows(rows_s, table.shape[1])
+        out = rasterize.rasterize_fused(synth, col, op, width, h, bg, eps=eps - t_a,
+                                        rs_full_height=full_h, rs_row_offset=row0,
+                                        reduce="mean", **kw)
+        (out.rgb * cot[row0:row0 + h]).sum().backward()
+        return rows_s.grad[:, :table.shape[1]]
+
+    want = table_grad(0, full_h)
+    got = sum(table_grad(k * strip_h, strip_h) for k in range(MESH_PARTS))
+    grad_shares = stacked_shares(got[None], want[None])
+    errs["strip_grad"] = (got - want).abs().max().item()
+    print(f"mesh: decompositions on the card at {width}x{full_h}, {g.means.shape[0]} Gaussians, "
+          f"rolling shutter {float(motion.rs_time):.3f} s, K {cfg.max_per_tile} (the fullest "
+          f"tile {fullest}): {MESH_PARTS} row strips of {strip_h} rows "
+          f"max|err| {errs['strips']:.3g}; blur S = 4 as 2 + 2 max|err| {errs['blur']:.3g}; "
+          f"{MESH_PARTS} depth slabs ({sizes} rows) max|err| rgb/T {errs['slabs']:.3g} (the early "
+          f"stop's bound {slab_tol:.3g}); the "
+          f"strips' table gradient max|err| {errs['strip_grad']:.3g}, per column "
+          f"{grad_shares['column']:.3g} and per row {grad_shares['row']:.3g} of max|full|; {card}")
+    for what in ("strips", "blur"):
+        check(errs[what] <= 1e-4, f"mesh: the {what} decomposition within phase 2's 1e-4")
+    check(errs["slabs"] <= slab_tol, "mesh: the slabs within the early stop's bound")
+    for kind in ("column", "row"):
+        check(grad_shares[kind] <= BWD_TOL[kind],
+              f"mesh: the strips' gradient per {kind} within {BWD_TOL[kind]}")
+    del full, strips, full4, halves, layers, rgb, T, whole, want, got, rows, table, cot
+
+    # (b) the sharded trainer through cli.fit
+    head = FIT_FLAGS[:FIT_FLAGS.index("nerfstudio-data")]
+    tail = FIT_FLAGS[FIT_FLAGS.index("nerfstudio-data"):]
+    runs, wall = {}, {}
+    mesh_flag = ["--mesh.enabled", "True"]
+    # in turns, so that neither side has the warmer card
+    for name, extra in (("single", []), ("mesh", mesh_flag), ("mesh_2", mesh_flag),
+                        ("single_2", [])):
+        argv = ["splatfacto", "--data", str(scene_dir), "--output-dir", str(work / "mesh_fits"),
+                "--experiment-name", "mesh", "--timestamp", name, *head,
+                "--max-num-iterations", str(MESH_STEPS), "--steps-per-eval", "0",
+                "--steps-per-save", str(MESH_STEPS), "--trainer.log-every", "1", *extra, *tail]
+        reset_counts()
+        t0 = time.perf_counter()
+        runs[name] = cli_fit.main(argv)
+        torch.cuda.synchronize()
+        wall[name] = time.perf_counter() - t0
+        if name == "mesh":
+            # the mesh path's launches: rank 0's, from its metrics.json
+            launches = json.loads((runs[name] / "metrics.json").read_text())["mesh"][
+                "kernel_launches"]
+    metrics = {k: json.loads((d / "metrics.json").read_text()) for k, d in runs.items()}
+    losses = {k: [json.loads(line)["loss"] for line in (d / "metrics_train.jsonl")
+                  .read_text().splitlines() if '"loss"' in line] for k, d in runs.items()}
+    check(all(len(v) == MESH_STEPS for v in losses.values()), "both fits logged every step")
+    a, b = np.asarray(losses["single"]), np.asarray(losses["mesh"])
+    rel = np.abs(b - a) / np.abs(a)
+    mesh_info = metrics["mesh"]["mesh"]
+    rate = {k: MESH_STEPS / m["train_time_seconds"] for k, m in metrics.items()}
+    print(f"mesh: cli.fit --mesh.enabled True on {mesh_info['backend']}, world "
+          f"{mesh_info['world']} ({mesh_info['shape']}), {MESH_STEPS} steps on phase 8's scene "
+          f"against the same fit without the mesh: loss relative difference median "
+          f"{np.median(rel):.3g}, largest {rel.max():.3g} (step {int(rel.argmax()) + 1}); "
+          f"steps/s {rate['mesh']:.3f} and {rate['mesh_2']:.3f} on the mesh, {rate['single']:.3f} "
+          f"and {rate['single_2']:.3f} without (in the order single, mesh, mesh, single); wall "
+          + ", ".join(f"{wall[k]:.1f}" for k in runs) + " s; eval psnr "
+          f"{metrics['mesh']['results']['psnr']:.4f} and {metrics['single']['results']['psnr']:.4f}"
+          f" dB; rank 0's launches {launches}; {card}")
+    check(mesh_info["backend"] == "nccl" and mesh_info["world"] == torch.cuda.device_count(),
+          "the mesh ran on NCCL with one rank per card")
+    check(np.median(rel) <= MESH_LOSS_REL["median"] and rel.max() <= MESH_LOSS_REL["max"],
+          f"the mesh's losses within {MESH_LOSS_REL} of the single-device fit's")
+    for k, n in launches.items():
+        check(n >= MESH_STEPS, f"mesh: {k} launched on every step")
+
+    # one more step of the mesh trainer, in this process (a comparison, outside the counted path)
+    run_cfg = run_config.load_config(runs["mesh"] / "config.json")
+    scene = dataparser.parse_scene(run_cfg.data, run_cfg.dataparser)
+    train_imgs, eval_imgs = dataset.load_scene_images(scene)
+    mesh = sharding.make_mesh({})
+    t = trainer.Trainer(scene, run_cfg.model,
+                        dataclasses.replace(run_cfg.trainer, max_steps=MESH_STEPS + 1,
+                                            seed=run_cfg.seed),
+                        train_images=train_imgs, eval_images=eval_imgs, mesh=mesh)
+    t.load_checkpoint(runs["mesh"] / "checkpoints" / f"step_{MESH_STEPS}")
+    with KernelCapture("a mesh training step (world 1) at 1024 px") as cap:
+        t.run(1)
+    check(len(cap.kinds("rasterize_bwd")) > 0 and len(cap.kinds("row_gather")) == 2,
+          "the mesh step's compositors and both row_gather shapes recorded")
+    errs.update(cap.hold(stacked_shares))
+    del t
+    shutil.rmtree(work / "mesh_fits", ignore_errors=True)
+    print(f"mesh: phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "errs": errs}
 
 
 def capture_phase(work: Path, scene_dir: Path, generated: dict, reset_counts,
@@ -1925,6 +2124,11 @@ def main() -> int:
     for kname, err in capture["errs"].items():
         errs[kname] = max(errs[kname], err)
     print(f"capture: phase 10 took {time.perf_counter() - t0:.1f} s")
+    mesh = mesh_phase(params, cams, cfg, fit["work"], fit["scene_dir"], reset_counts,
+                      stacked_probe.shares, card)
+    for kname, err in mesh["errs"].items():
+        if kname in errs:
+            errs[kname] = max(errs[kname], err)
     shutil.rmtree(fit["work"], ignore_errors=True)
 
     kernels = [
@@ -1992,6 +2196,7 @@ def main() -> int:
     by_path["fit"] = fit["launches"]
     by_path.update(tools["launches"])
     by_path["capture"] = capture["launches"]
+    by_path["mesh"] = mesh["launches"]
     for kern in kernels:
         if kern["name"] in launches:
             kern["launches_by_path"] = {path: counts[kern["name"]]

@@ -9,9 +9,9 @@ not available here): kebab-case dotted paths map onto nested dataclass fields,
 with bool/int/float/str coercion from the field's declared type.
 
 Beyond the JAX package's fields a run has a `device` ("cuda" unless the caller
-asks for "cpu"). The model fields that only shape the TPU kernels (`chunk`,
-`gauss_shard_mode`, `slab_slack`) have no counterpart here: their flags are
-accepted and ignored, and a `config.json` that holds them loads without them.
+asks for "cpu"). The one model field that only shapes the TPU kernels
+(`chunk`) has no counterpart here: its flag is accepted and ignored, and a
+`config.json` that holds it loads without it.
 """
 from __future__ import annotations
 
@@ -26,28 +26,21 @@ from ..models.splatfacto import SplatfactoConfig
 from .trainer import TrainerConfig
 
 # model flags of the JAX package that only shape its TPU kernels
-_TPU_ONLY_MODEL_FIELDS = ("chunk", "gauss_shard_mode", "slab_slack")
+_TPU_ONLY_MODEL_FIELDS = ("chunk",)
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """The `--mesh.*` flags of the JAX package (axis sizes; 0 = auto). This
-    package trains on one device: enabling the mesh raises until the
-    multi-device slice (`parallel/sharding.py` on `torch.distributed`) is
-    ported."""
+    """The `--mesh.*` flags of the JAX package: axis sizes, 0 = auto.
+    `enabled=False` (default) trains on one device; `enabled=True` trains
+    on the `(data, gauss, blur, tile)` mesh of `parallel/sharding.py`, one
+    rank per device, the axes auto-filled by `resolve_mesh`."""
 
     enabled: bool = False
     data: int = 1
     gauss: int = 1
     blur: int = 0
     tile: int = 0
-
-    def __post_init__(self):
-        if self.enabled:
-            raise NotImplementedError(
-                "mesh.enabled: multi-device training is not ported yet (the multi-device "
-                "slice: parallel/sharding.py on torch.distributed); this package trains on "
-                "one device")
 
 
 @dataclasses.dataclass
@@ -75,7 +68,7 @@ class RunConfig:
     dataparser: DataParserConfig = dataclasses.field(
         default_factory=lambda: DataParserConfig(eval_mode="interval")
     )
-    # multi-device training mesh (--mesh.enabled True raises: not ported yet)
+    # multi-device training mesh (parallel/sharding.py)
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
 
     def run_dir(self) -> Path:
@@ -167,7 +160,7 @@ def help_text() -> str:
         ("run", RunConfig, "--"),
         ("model", SplatfactoConfig, "--pipeline.model."),
         ("trainer", TrainerConfig, "--trainer."),
-        ("mesh (multi-device, not ported yet)", MeshConfig, "--mesh."),
+        ("mesh (multi-device)", MeshConfig, "--mesh."),
         ("dataparser (after 'nerfstudio-data')", DataParserConfig, "--"),
     ):
         out.write(f"\n[{title}]\n")

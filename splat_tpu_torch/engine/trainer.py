@@ -1,6 +1,7 @@
-"""The training loop of the method (port of `splat_tpu/engine/trainer.py`,
-single device: `TrainerConfig`, the per-group optimizer, `train_step`, the
-eval-camera step and `Trainer` with `run`, `evaluate` and `render_eval`).
+"""The training loop of the method (port of `splat_tpu/engine/trainer.py`:
+`TrainerConfig`, the per-group optimizer, `train_step`, the eval-camera step
+and `Trainer` with `run`, `evaluate` and `render_eval`, on one device or on
+a mesh).
 
 `Optimizer` makes one Adam parameter group per label of the JAX
 package's `param_labels` (eps 1e-15, the splatfacto 1.1.0 learning rates),
@@ -32,15 +33,28 @@ the eval optimizer's state, the strategy accumulators, and the sampling stream
 tile-overflow streak), so save -> fresh trainer -> load -> run continues the
 trajectory of an uninterrupted run bit for bit. The JAX package's Orbax trees
 are not read here (`models.convert.trainer_state_from_numpy` takes one as
-numpy arrays). The multi-device mesh is not ported yet.
+numpy arrays).
+
+With a `mesh` (`parallel/sharding.py`, one process per rank) the step goes
+through `sharded_train_step` and the eval-camera step through
+`sharded_eval_opt_step`; each rank of the data axis takes its own camera of
+a batch that every rank draws alike from the same generator (the cursor
+advances per camera), and the eval renders go through `sharded_render`.
+Refine, opacity reset, capacity growth, the tile-capacity probe and the
+checkpoints run on the global view (`_global_view`): the Gaussian shards,
+their Adam moments and the strategy accumulators gathered, the same code run
+on every rank with the same split noise, then sharded again. A checkpoint
+holds the global state (rank 0 writes it, every rank reads it), so mesh and
+single-device runs load each other's.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import time
 from pathlib import Path
-from typing import Callable
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -55,6 +69,7 @@ from ..models.convert import named_leaves
 from ..ops import lpips as lpips_mod
 from ..ops.ssim import psnr as psnr_fn
 from ..ops.ssim import ssim as ssim_fn
+from ..parallel import sharding
 from ..utils.profiling import StepTimer
 
 
@@ -168,11 +183,11 @@ class Optimizer:
                 yield from group["params"]
 
     @torch.no_grad()
-    def grow(self, new_leaves: dict[torch.Tensor, torch.Tensor]) -> None:
-        """Swap per-Gaussian leaves for their grown copies (port of
-        `grow_opt_state`): `new_leaves` maps each old leaf to its padded
-        successor. Adam's moments move to the new leaf padded with zeros; its
-        step count, the group's learning rate and the schedule's count stay."""
+    def remap(self, new_leaves: dict[torch.Tensor, torch.Tensor],
+              moments: Callable[[torch.Tensor], torch.Tensor]) -> None:
+        """Swap leaves for new ones (`new_leaves` maps each old leaf to its
+        successor), each of Adam's moments taken through `moments`; the step
+        counts, the groups' learning rates and the schedule's count stay."""
         for group in self.adam.param_groups:
             for i, old in enumerate(group["params"]):
                 new = new_leaves.get(old)
@@ -182,12 +197,18 @@ class Optimizer:
                 group["params"][i] = new
                 state = self.adam.state.pop(old, None)
                 if state:
-                    pad = new.shape[0] - old.shape[0]
                     for key in ("exp_avg", "exp_avg_sq"):
-                        m = state[key]
-                        state[key] = torch.cat([m, m.new_zeros((pad,) + tuple(m.shape[1:]))])
+                        state[key] = moments(state[key])
                     self.adam.state[new] = state
         self.params = [new_leaves.get(p, p) for p in self.params]
+
+    def grow(self, new_leaves: dict[torch.Tensor, torch.Tensor]) -> None:
+        """Swap per-Gaussian leaves for their grown copies (port of
+        `grow_opt_state`): `new_leaves` maps each old leaf to its padded
+        successor. Adam's moments move to the new leaf padded with zeros."""
+        cap = next(iter(new_leaves.values())).shape[0]
+        self.remap(new_leaves, lambda m: torch.cat(
+            [m, m.new_zeros((cap - m.shape[0],) + tuple(m.shape[1:]))]))
 
     @torch.no_grad()
     def zero_slots(self, changed: torch.Tensor) -> None:
@@ -268,12 +289,13 @@ def eval_opt_step(params: sf.ModelParams, eval_optimizer: EvalOptimizer,
 
 @dataclasses.dataclass
 class Trainer:
-    """Train one scene on one device (port of the JAX package's `Trainer`).
+    """Train one scene (port of the JAX package's `Trainer`).
 
     scene: the parsed cameras and seed cloud; train_images, eval_images: the
     two image stacks, in the order of the scene's cameras (None: decoded from
     the scene's image paths). The model and every image live on `device`
-    (CUDA unless "cpu" is asked for)."""
+    (CUDA unless "cpu" is asked for). mesh: this rank's `sharding.Mesh`
+    (every rank builds its Trainer alike), None for one device."""
 
     scene: ParsedScene
     model_config: sf.SplatfactoConfig
@@ -281,6 +303,7 @@ class Trainer:
     train_images: ImageCache | None = None
     eval_images: ImageCache | None = None
     device: str | torch.device | None = None
+    mesh: Any = None
 
     def __post_init__(self):
         if self.train_images is None or self.eval_images is None:
@@ -300,6 +323,10 @@ class Trainer:
         self.optimizer = Optimizer(self.params, tc)
         self.strat_state = st.init_strategy_state(
             self.params.gaussians.alive.shape[0], tc.seed, device=dev)
+        self.data_batch = 1 if self.mesh is None else self.mesh.shape["data"]
+        if self.mesh is not None:
+            self.params, self.strat_state = sharding.shard_train_state(
+                self.mesh, self.params, self.optimizer, self.strat_state)
         self.eval_optimizer = (EvalOptimizer(self.params, tc)
                                if cfg.optimize_eval_cameras and self.params.eval_camera_opt
                                else None)
@@ -427,10 +454,42 @@ class Trainer:
     def _next_camera_index(self, n_train: int) -> int:
         """The next train camera in the shuffled epoch order: a new
         permutation whenever the step count reaches a multiple of n_train."""
-        i = self.step % n_train
-        if i == 0 or self._order is None:
-            self._order = torch.randperm(n_train, generator=self._sampler).tolist()
-        return int(self._order[i])
+        return self._next_camera_indices(n_train, 1)[0]
+
+    def _next_camera_indices(self, n_train: int, count: int) -> list[int]:
+        """`count` consecutive draws of the shuffled epoch order (the mesh's
+        camera batch), the cursor advancing per camera: a new permutation
+        whenever the cursor reaches a multiple of n_train."""
+        out = []
+        for j in range(count):
+            i = (self.step * count + j) % n_train
+            if i == 0 or self._order is None:
+                self._order = torch.randperm(n_train, generator=self._sampler).tolist()
+            out.append(int(self._order[i]))
+        return out
+
+    @contextlib.contextmanager
+    def _global_view(self):
+        """Inside, `params`, the optimizer and the strategy state hold the
+        whole capacity axis on every rank of a gauss-sharded mesh (gathered
+        on entry, sharded again on exit, whatever capacity they then have);
+        elsewhere they always do."""
+        if self.mesh is None or self.mesh.shape["gauss"] == 1:
+            yield
+            return
+        self.params, self.strat_state = sharding.gather_train_state(
+            self.mesh, self.params, self.optimizer, self.strat_state)
+        try:
+            yield
+        finally:
+            self.params, self.strat_state = sharding.shard_train_state(
+                self.mesh, self.params, self.optimizer, self.strat_state)
+
+    def _n_alive(self) -> int:
+        n = self.params.gaussians.alive.sum()
+        if self.mesh is not None:
+            n = sharding.reduce_(n.clone(), self.mesh.axes["gauss"])
+        return int(n)
 
     def _split_noise(self, shape) -> tuple[torch.Tensor, torch.Tensor]:
         """The two standard-normal samples a refine's splits use."""
@@ -459,22 +518,38 @@ class Trainer:
         for it in range(steps):
             cfg = self.model_config
             level_cams, level_imgs = self._level_data(self._resolution_level())
-            ci = self._next_camera_index(n_train)
-            cam, gt = level_cams[ci], level_imgs[ci]
-            self._probe_cam = cam
-            self.timer.start()
-            loss, _aux, self.strat_state = train_step(
-                self.params, self.optimizer, self.strat_state, cfg, cam, gt, self.step,
-                self._bg_generator)
+            if self.mesh is None:
+                ci = self._next_camera_index(n_train)
+                cam, gt = level_cams[ci], level_imgs[ci]
+                self._probe_cam = cam
+                self.timer.start()
+                loss, _aux, self.strat_state = train_step(
+                    self.params, self.optimizer, self.strat_state, cfg, cam, gt, self.step,
+                    self._bg_generator)
+            else:
+                batch = self._next_camera_indices(n_train, self.data_batch)
+                ci = batch[self.mesh.coords["data"]]
+                self._probe_cam = level_cams[batch[0]]
+                self.timer.start()
+                loss, _aux, self.strat_state = sharding.sharded_train_step(
+                    self.mesh, self.params, self.optimizer, self.strat_state, cfg,
+                    level_cams[ci], level_imgs[ci], self.step, self._bg_generator)
             self.timer.stop(sync=((self.step + 1) % tc.sync_every == 0 or it + 1 == steps
                                   or (self.step + 1) % cfg.refine_every == 0))
 
             # eval-camera optimisation, the scene frozen
             if (self.eval_optimizer is not None and self.step % tc.eval_opt_every == 0
                     and len(self.eval_cams) > 0):
-                ei = (self.step // tc.eval_opt_every) % len(self.eval_cams)
-                eval_opt_step(self.params, self.eval_optimizer, cfg, self.eval_cams[ei],
-                              self._eval_imgs_dev[ei], self.step, self._bg_generator)
+                d = self.data_batch
+                ei = ((self.step // tc.eval_opt_every) * d) % len(self.eval_cams)
+                if self.mesh is None:
+                    eval_opt_step(self.params, self.eval_optimizer, cfg, self.eval_cams[ei],
+                                  self._eval_imgs_dev[ei], self.step, self._bg_generator)
+                else:
+                    ei = (ei + self.mesh.coords["data"]) % len(self.eval_cams)
+                    sharding.sharded_eval_opt_step(
+                        self.mesh, self.params, self.eval_optimizer, cfg, self.eval_cams[ei],
+                        self._eval_imgs_dev[ei], self.step, self._bg_generator)
 
             self.step += 1
 
@@ -484,32 +559,33 @@ class Trainer:
             reset_pause = n_train + cfg.refine_every
             if (self.step % cfg.refine_every == 0 and cfg.warmup_length <= self.step
                     and self.step - self._last_reset_step > reset_pause):
-                event = {"step": self.step, **self._refine_gaussians()}
-                event["grew"] = self._maybe_grow()
-                event["adapted"] = self._maybe_adapt_tile_capacity()
-                cfg = self.model_config
-                n_ref = self.step // cfg.refine_every
-                # never reset without a recovery window before the run ends:
-                # the model would be evaluated with every opacity clamped
-                can_recover = self.step + reset_pause <= tc.max_steps
-                event["reset"] = bool(cfg.reset_alpha_every > 0
-                                      and n_ref % cfg.reset_alpha_every == 0
-                                      and self.step < cfg.stop_split_at and can_recover)
-                if event["reset"]:
-                    g = self.params.gaussians
-                    with torch.no_grad():
-                        g.opacities_logit.copy_(st.reset_opacity(g, cfg).opacities_logit)
-                    self._last_reset_step = self.step
-                event.update(capacity=self.params.gaussians.alive.shape[0],
-                             max_per_tile=cfg.max_per_tile,
-                             max_total_entries=cfg.max_total_entries)
-                self.refine_events.append(event)
+                with self._global_view():
+                    event = {"step": self.step, **self._refine_gaussians()}
+                    event["grew"] = self._maybe_grow()
+                    event["adapted"] = self._maybe_adapt_tile_capacity()
+                    cfg = self.model_config
+                    n_ref = self.step // cfg.refine_every
+                    # never reset without a recovery window before the run ends:
+                    # the model would be evaluated with every opacity clamped
+                    can_recover = self.step + reset_pause <= tc.max_steps
+                    event["reset"] = bool(cfg.reset_alpha_every > 0
+                                          and n_ref % cfg.reset_alpha_every == 0
+                                          and self.step < cfg.stop_split_at and can_recover)
+                    if event["reset"]:
+                        g = self.params.gaussians
+                        with torch.no_grad():
+                            g.opacities_logit.copy_(st.reset_opacity(g, cfg).opacities_logit)
+                        self._last_reset_step = self.step
+                    event.update(capacity=self.params.gaussians.alive.shape[0],
+                                 max_per_tile=cfg.max_per_tile,
+                                 max_total_entries=cfg.max_total_entries)
+                    self.refine_events.append(event)
 
             if self.step % tc.log_every == 0 or self.step == steps:
                 rec = {
                     "step": self.step,
                     "loss": float(loss),
-                    "n_alive": int(self.params.gaussians.alive.sum()),
+                    "n_alive": self._n_alive(),
                     "wall_s": time.time() - t0,
                     **self.timer.summary(last_n=tc.log_every),
                 }
@@ -536,10 +612,15 @@ class Trainer:
         if cfg.background_color == "random":
             raise ValueError("render_eval: background_color='random' has no eval background; "
                              "evaluate with 'black', 'white' or 'auto'")
-        out = sf.render_camera(self.params, self.eval_cams[idx], cfg,
-                               sf.active_sh_degree(cfg, self.step),
-                               sf.background_color(self.params, cfg), is_eval_camera=True)
-        return torch.clamp(sf.gamma_encode(out.rgb, cfg), 0.0, 1.0)
+        bg = sf.background_color(self.params, cfg)
+        if self.mesh is None:
+            rgb = sf.render_camera(self.params, self.eval_cams[idx], cfg,
+                                   sf.active_sh_degree(cfg, self.step), bg,
+                                   is_eval_camera=True).rgb
+        else:
+            rgb = sharding.sharded_render(self.mesh, self.params, self.eval_cams[idx], cfg,
+                                          self.step, bg, is_eval=True)
+        return torch.clamp(sf.gamma_encode(rgb, cfg), 0.0, 1.0)
 
     @torch.no_grad()
     def evaluate(self) -> dict:
@@ -576,8 +657,20 @@ class Trainer:
         """Write the full training state to the directory `path`: the model,
         both optimizers (Adam's moments and step per leaf, the decays' count),
         the strategy accumulators and the sampling stream, as `state.npz`
-        (flat dotted keys, plain arrays) and `meta.json`."""
+        (flat dotted keys, plain arrays) and `meta.json`. On a mesh every
+        rank calls it: rank 0 writes the global state, and the call returns
+        on every rank once the files are there."""
         path = Path(path)
+        if self.mesh is None:
+            return self._write_checkpoint(path)
+        with self._global_view():
+            if self.mesh.rank == 0:
+                self._write_checkpoint(path)
+        if self.mesh.world > 1:
+            torch.distributed.barrier()
+        return path
+
+    def _write_checkpoint(self, path: Path) -> Path:
         path.mkdir(parents=True, exist_ok=True)
         leaves = named_leaves(self.params)
         names = {id(leaf): name for name, leaf in leaves.items()}
@@ -631,7 +724,6 @@ class Trainer:
         self.strat_state = st.init_strategy_state(capacity, self.trainer_config.seed,
                                                   device=self.device)
 
-    @torch.no_grad()
     def load_checkpoint(self, path: str | Path) -> None:
         """Restore a checkpoint written by `save_checkpoint`. The model adapts
         to the stored capacity. An optional group (camera or velocity
@@ -640,8 +732,13 @@ class Trainer:
         configuration is skipped with one message and the current state kept;
         the model itself is never skipped. A checkpoint without a sampling
         group re-derives the epoch cursor and the last reset step from the
-        schedule."""
-        path = Path(path)
+        schedule. On a mesh every rank reads the global state and keeps its
+        shard."""
+        with self._global_view():
+            self._read_checkpoint(Path(path))
+
+    @torch.no_grad()
+    def _read_checkpoint(self, path: Path) -> None:
         meta = json.loads((path / "meta.json").read_text())
         if meta.get("format", 1) != 1:
             raise ValueError(f"{path}: checkpoint format {meta['format']}, this package reads 1")

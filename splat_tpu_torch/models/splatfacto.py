@@ -17,7 +17,7 @@ unclamped per-tile populations the adaptive tile capacity reads.
 
 The config keeps the render, loss, progressive-resolution and densification
 fields of the JAX config, with its defaults (splatfacto 1.1.0's schedule);
-the TPU tuning knob `chunk` and the mesh fields have no counterpart here.
+the TPU tuning knob `chunk` has no counterpart here.
 """
 from __future__ import annotations
 
@@ -79,6 +79,10 @@ class SplatfactoConfig:
     # cuda: the kernels, raising on CPU tensors
     impl: str = "auto"
     initial_capacity: int = 0                  # 0 = auto from seed points
+    # a mesh with a gauss axis (parallel/sharding.py): gather the projected
+    # table of every shard, or composite depth slabs and merge them
+    gauss_shard_mode: str = "gather"           # gather | slab
+    slab_slack: float = 2.0                    # slab bucket capacity headroom
 
 
 class GaussianParams(NamedTuple):
@@ -257,9 +261,13 @@ def camera_motion(params: ModelParams, camera: Cameras, config: SplatfactoConfig
 
 def subframe_inputs(params: ModelParams, motion: CameraMotion, config: SplatfactoConfig,
                     sh_degree_active, t_s, means2d_probe: torch.Tensor | None = None,
+                    row0: int = 0,
                     ) -> tuple[projection.ProjectedGaussians, torch.Tensor]:
     """Projection and view-dependent colours at the pose of exposure time t_s.
-    means2d_probe (C, 2), if given, is added to the projected means."""
+    means2d_probe (C, 2), if given, is added to the projected means. row0:
+    the means in the coordinates of a row strip starting at image row row0
+    (projected into the full image, then moved up by row0: exact for a row0
+    below 2^24, so a strip sees every mean where the full image does)."""
     g = params.gaussians
     cam = motion.camera
     Rt, pt = se3.se3_advance_c2w(motion.R0, motion.p0, motion.lin_vel, motion.ang_vel, t_s)
@@ -272,6 +280,10 @@ def subframe_inputs(params: ModelParams, motion: CameraMotion, config: Splatfact
         lin_vel=motion.lin_vel if vel else None,
         ang_vel=motion.ang_vel if vel else None,
     )
+    if row0:
+        shift = torch.tensor([0.0, float(row0)], dtype=proj.means2d.dtype,
+                             device=proj.means2d.device)
+        proj = proj._replace(means2d=proj.means2d - shift)
     if means2d_probe is not None:
         proj = proj._replace(means2d=proj.means2d + means2d_probe)
     if config.rasterize_mode == "classic":

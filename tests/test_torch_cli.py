@@ -3,8 +3,9 @@
 - `parse_cli` of both packages on the flag lists `cli/train.py` emits for
   every variant of three dataset classes (the dotted model flags, the run
   flags and the `nerfstudio-data` block): equal model, trainer and dataparser
-  fields (the three model fields that only shape the TPU kernels aside), and
-  `config.json` keys that differ only by those three and the port's `device`.
+  fields (`chunk`, the one model field that only shapes the TPU kernels,
+  aside), and `config.json` keys that differ only by it and the port's
+  `device`; the `--mesh.*` flags parse into the same `MeshConfig` fields.
 - `splat_tpu_torch.cli.fit.main([... "--device", "cpu"])` on a 32 px scene for
   30 steps with two evals and two checkpoints writes `config.json`,
   `dataparser_transforms.json`, `metrics_train.jsonl` and `metrics.json` with
@@ -31,7 +32,7 @@ from splat_tpu_torch.data import synthetic
 from splat_tpu_torch.engine import config as tcfg
 
 ROOT = Path(__file__).resolve().parents[1]
-TPU_ONLY = ("chunk", "gauss_shard_mode", "slab_slack")
+TPU_ONLY = ("chunk",)
 
 
 def _script(name):
@@ -106,8 +107,12 @@ def test_parse_cli_errors_and_unported_options(tmp_path):
             mod.parse_cli(["--data"])
         assert mod.parse_cli(["--pipeline.model.tile-size", "16x8"]).model.tile_size == (16, 8)
     assert "--pipeline.model.blur-samples" in tcfg.help_text()
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        tcfg.parse_cli(["--mesh.enabled", "True"])
+    # the --mesh.* flags parse into the JAX CLI's MeshConfig fields
+    mesh_flags = ["--mesh.enabled", "True", "--mesh.data", "2", "--mesh.gauss", "2",
+                  "--mesh.blur", "0", "--mesh.tile", "4"]
+    assert (dataclasses.asdict(tcfg.parse_cli(mesh_flags).mesh)
+            == dataclasses.asdict(jcfg.parse_cli(mesh_flags).mesh)
+            == dict(enabled=True, data=2, gauss=2, blur=0, tile=4))
     # the live viewer is ported: `--vis viewer` gets as far as reading the scene
     with pytest.raises(FileNotFoundError, match="nowhere"):
         t_fit.main(["--data", "nowhere", "--vis", "viewer", "--device", "cpu",

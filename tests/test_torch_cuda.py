@@ -41,11 +41,15 @@ before its transpose-reduce moved into raster_common.cuh (exact). chunk_cumsum's
 variant adds in row order in float32 and its "warp" variant in another
 association: both within 1e-6 of max|plain| of the plain version on the CPU
 (a sequential walk that accumulates in float64), and within the JAX probe's
-own atol 1e-3 of the plain version on the card (a parallel scan).
+own atol 1e-3 of the plain version on the card (a parallel scan). The mesh
+(`parallel/sharding.py`) on NCCL at world = the visible cards (NCCL needs a
+card per rank) holds its loss within 1e-5 and every gradient within 1e-3 *
+max|leaf gradient| of one device's, the kernel route's bounds.
 """
 import dataclasses
 import hashlib
 import importlib.util
+import math
 from pathlib import Path
 
 import numpy as np
@@ -65,6 +69,7 @@ from splat_tpu_torch.ops.cuda.row_gather import row_gather, row_gather_plain
 from splat_tpu_torch.ops.cuda.row_scatter import row_scatter, scatter_plan, scatter_plan_plain
 from splat_tpu_torch.ops.cuda.seg_copy import seg_copy, seg_copy_plain
 from splat_tpu_torch.ops.cuda.seg_dma import seg_dma
+from splat_tpu_torch.parallel import launch, sharding
 
 IMG_W, IMG_H = 96, 64
 K = 128
@@ -556,3 +561,61 @@ def test_lpips_on_card_matches_cpu(cuda_device):
                                   torch.from_numpy(y).to(cuda_device),
                                   {k: v.to(cuda_device) for k, v in w.items()}))
     assert cpu > 0 and abs(card - cpu) <= 1e-5 * cpu, (card, cpu)
+
+
+MESH_CFG = dict(max_per_tile=K, blur_samples=4)
+
+
+def _mesh_loss(params, cams, cfg, gt, mesh=None):
+    """The loss and every trainable leaf's gradient with the probe's, on one
+    device (mesh None) or as this rank's reduced share of a mesh."""
+    flat = [p for group in trainer.param_groups(params).values() for p in group]
+    for p in flat:
+        p.grad = None
+        p.requires_grad_(True)
+    probe = torch.zeros_like(params.gaussians.means[:, :2], requires_grad=True)
+    if mesh is None:
+        out = sf.render_camera(params, cams, cfg, 3, sf.background_color(params, cfg),
+                               means2d_probe=probe)
+        loss, _ = sf.compute_losses(sf.gamma_encode(out.rgb, cfg), gt, params, cfg)
+        loss.backward()
+    else:
+        share, _ = sharding.sharded_loss(mesh, params, cams, gt, cfg, 3000, probe=probe)
+        share.backward()
+        sharding.reduce_gradients(mesh, [], flat + [probe])
+        loss = sharding.world_sum(mesh, share)
+    return loss.detach(), [p.grad for p in flat] + [probe.grad]
+
+
+def mesh_rank(rank, world, dev, shape, out):
+    """One rank of the card mesh check; rank 0 writes the result to `out`."""
+    params, cams = _model(dev)
+    gt = torch.rand((IMG_H, IMG_W, 3), generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev)
+    loss, grads = _mesh_loss(params, cams, sf.SplatfactoConfig(**MESH_CFG), gt,
+                             sharding.make_mesh(shape))
+    if rank == 0:
+        np.savez(out, loss=loss.cpu().numpy(), **{f"g{i}": g.cpu().numpy()
+                                                  for i, g in enumerate(grads)})
+
+
+@pytest.mark.cuda
+def test_mesh_on_nccl_matches_one_device(cuda_device, tmp_path):
+    """The mesh at world = the visible cards (the auto-filled axes; one rank
+    per card, NCCL): the loss and every gradient against one device."""
+    from splat_tpu_torch.engine.config import MeshConfig
+
+    cfg = sf.SplatfactoConfig(**MESH_CFG)
+    shape = sharding.resolve_mesh(MeshConfig(enabled=True), cfg, IMG_H,
+                                  torch.cuda.device_count())
+    out = tmp_path / "rank0.npz"
+    launch.launch(mesh_rank, math.prod(shape.values()), args=(shape, out), device="cuda")
+    got = np.load(out)
+    params, cams = _model(cuda_device)
+    gt = torch.rand((IMG_H, IMG_W, 3), generator=torch.Generator(device=cuda_device).manual_seed(1),
+                    device=cuda_device)
+    loss, grads = _mesh_loss(params, cams, cfg, gt)
+    assert abs(float(got["loss"]) - loss.item()) <= 1e-5 * loss.item()
+    for i, g in enumerate(grads):
+        want = g.cpu().numpy()
+        np.testing.assert_allclose(got[f"g{i}"], want, rtol=0, atol=1e-3 * np.abs(want).max())
