@@ -869,20 +869,23 @@ def mesh_phase(params, cams, cfg, work: Path, scene_dir: Path, reset_counts, sta
         full = sf.render_camera(params, cam, cfg, sh, bg).rgb
         strips = torch.cat([sharding._render_strip_linear(
             params, cam, cfg, sh, bg, strip_h, k * strip_h, (0, eps.shape[0]), one)[0]
-            for k in range(MESH_PARTS)]) / eps.shape[0]
+            for k in range(MESH_PARTS)])
         errs["strips"] = (strips - full).abs().max().item()
         cfg4 = dataclasses.replace(cfg, blur_samples=4)
         full4 = sf.render_camera(params, cam, cfg4, sh, bg).rgb
         halves = [sharding._render_strip_linear(params, cam, cfg4, sh, bg, full_h, 0, (lo, lo + 2),
                                                 one)[0] for lo in (0, 2)]
-        errs["blur"] = ((halves[0] + halves[1]) / 4 - full4).abs().max().item()
+        errs["blur"] = (halves[0] + halves[1] - full4).abs().max().item()
         proj, colors = sf.subframe_inputs(params, motion, cfg, sh, t_a)
         table = kcuda.pack_param_table(proj, colors, opac)[:-1]
         rows = torch.cat([table, proj.extents], dim=1)
         slab = sharding.slab_ids(table[:, 9], table[:, 8] > 0, MESH_PARTS, one)
+        # one virtual rank holds the whole cloud, so its k-th send bucket is
+        # all that slab k's rank receives in the exchange
+        buckets, overflow = sharding.slab_buckets(rows, slab, MESH_PARTS, cfg.slab_slack)
         layers = []
         for k in range(MESH_PARTS):
-            synth, col, op = sharding._from_rows(rows[slab == k], table.shape[1])
+            synth, col, op = sharding._from_rows(buckets[k], table.shape[1])
             layers.append(rasterize.rasterize_fused(synth, col, op, width, full_h,
                                                     torch.zeros_like(bg), eps=eps - t_a, **kw))
         rgb, T = sharding.over(torch.stack([o.rgb for o in layers]),
@@ -890,7 +893,8 @@ def mesh_phase(params, cams, cfg, work: Path, scene_dir: Path, reset_counts, sta
         whole = rasterize.rasterize_fused(proj, colors, opac, width, full_h, bg, eps=eps - t_a, **kw)
         errs["slabs"] = max((rgb + T[..., None] * bg - whole.rgb).abs().max().item(),
                             (T - whole.transmittance).abs().max().item())
-        sizes = [int((slab == k).sum()) for k in range(MESH_PARTS)]
+        sizes = [int((buckets[k, :, 8] > 0).sum()) for k in range(MESH_PARTS)]
+        overflow = int(overflow)
         # a pixel stops once its T falls to T_EPS; each slab starts at T = 1
         # and composites on past that point, by at most T_EPS of a colour
         slab_tol = T_EPS * max(1.0, colors.abs().max().item()) + 1e-6
@@ -917,17 +921,19 @@ def mesh_phase(params, cams, cfg, work: Path, scene_dir: Path, reset_counts, sta
           f"rolling shutter {float(motion.rs_time):.3f} s, K {cfg.max_per_tile} (the fullest "
           f"tile {fullest}): {MESH_PARTS} row strips of {strip_h} rows "
           f"max|err| {errs['strips']:.3g}; blur S = 4 as 2 + 2 max|err| {errs['blur']:.3g}; "
-          f"{MESH_PARTS} depth slabs ({sizes} rows) max|err| rgb/T {errs['slabs']:.3g} (the early "
+          f"{MESH_PARTS} depth slabs ({sizes} live rows in buckets of {buckets.shape[1]}, "
+          f"{overflow} dropped) max|err| rgb/T {errs['slabs']:.3g} (the early "
           f"stop's bound {slab_tol:.3g}); the "
           f"strips' table gradient max|err| {errs['strip_grad']:.3g}, per column "
           f"{grad_shares['column']:.3g} and per row {grad_shares['row']:.3g} of max|full|; {card}")
     for what in ("strips", "blur"):
         check(errs[what] <= 1e-4, f"mesh: the {what} decomposition within phase 2's 1e-4")
+    check(overflow == 0, "mesh: no slab bucket overflows")
     check(errs["slabs"] <= slab_tol, "mesh: the slabs within the early stop's bound")
     for kind in ("column", "row"):
         check(grad_shares[kind] <= BWD_TOL[kind],
               f"mesh: the strips' gradient per {kind} within {BWD_TOL[kind]}")
-    del full, strips, full4, halves, layers, rgb, T, whole, want, got, rows, table, cot
+    del full, strips, full4, halves, layers, rgb, T, whole, want, got, rows, table, cot, buckets
 
     # (b) the sharded trainer through cli.fit
     head = FIT_FLAGS[:FIT_FLAGS.index("nerfstudio-data")]

@@ -113,7 +113,7 @@ def _run(rank, world, device, cfg, shape):
             # a mesh every rank gathers the Gaussians and rank 0 serves them.
             from . import viewer as viewer_mod
 
-            with trainer._global_view():
+            with trainer.global_view():
                 if rank == 0:
                     viewer_state = viewer_mod.ViewerState.from_trainer(cfg, trainer, res=256)
             if viewer_state is not None:
@@ -151,7 +151,7 @@ def _train(cfg, trainer, run_dir, viewer_state):
 
     def publish():
         if viewing:
-            with trainer._global_view():
+            with trainer.global_view():
                 if viewer_state is not None:
                     viewer_state.publish(trainer)
 

@@ -41,7 +41,7 @@ through `sharded_train_step` and the eval-camera step through
 a batch that every rank draws alike from the same generator (the cursor
 advances per camera), and the eval renders go through `sharded_render`.
 Refine, opacity reset, capacity growth, the tile-capacity probe and the
-checkpoints run on the global view (`_global_view`): the Gaussian shards,
+checkpoints run on the global view (`global_view`): the Gaussian shards,
 their Adam moments and the strategy accumulators gathered, the same code run
 on every rank with the same split noise, then sharded again. A checkpoint
 holds the global state (rank 0 writes it, every rank reads it), so mesh and
@@ -469,7 +469,7 @@ class Trainer:
         return out
 
     @contextlib.contextmanager
-    def _global_view(self):
+    def global_view(self):
         """Inside, `params`, the optimizer and the strategy state hold the
         whole capacity axis on every rank of a gauss-sharded mesh (gathered
         on entry, sharded again on exit, whatever capacity they then have);
@@ -559,7 +559,7 @@ class Trainer:
             reset_pause = n_train + cfg.refine_every
             if (self.step % cfg.refine_every == 0 and cfg.warmup_length <= self.step
                     and self.step - self._last_reset_step > reset_pause):
-                with self._global_view():
+                with self.global_view():
                     event = {"step": self.step, **self._refine_gaussians()}
                     event["grew"] = self._maybe_grow()
                     event["adapted"] = self._maybe_adapt_tile_capacity()
@@ -663,7 +663,7 @@ class Trainer:
         path = Path(path)
         if self.mesh is None:
             return self._write_checkpoint(path)
-        with self._global_view():
+        with self.global_view():
             if self.mesh.rank == 0:
                 self._write_checkpoint(path)
         if self.mesh.world > 1:
@@ -734,7 +734,7 @@ class Trainer:
         group re-derives the epoch cursor and the last reset step from the
         schedule. On a mesh every rank reads the global state and keeps its
         shard."""
-        with self._global_view():
+        with self.global_view():
             self._read_checkpoint(Path(path))
 
     @torch.no_grad()

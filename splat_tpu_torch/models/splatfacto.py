@@ -294,6 +294,14 @@ def subframe_inputs(params: ModelParams, motion: CameraMotion, config: Splatfact
     return proj, sh_eval_switch(sh_degree_active, config.sh_degree, dirs, coeffs)
 
 
+def anchor_groups(n_s: int, n_a: int) -> list[tuple[int, int]]:
+    """The fused blur mode's n_a anchor groups of n_s sub-frames, as [lo, hi)
+    sample ranges of near-equal size (the first n_s % n_a one larger)."""
+    sizes = [n_s // n_a + (1 if a < n_s % n_a else 0) for a in range(n_a)]
+    offsets = [sum(sizes[:a]) for a in range(n_a)]
+    return [(o, o + sz) for o, sz in zip(offsets, sizes)]
+
+
 def render_camera(
     params: ModelParams,
     camera: Cameras,
@@ -302,67 +310,87 @@ def render_camera(
     background: torch.Tensor,
     is_eval_camera: bool = False,
     means2d_probe: torch.Tensor | None = None,
+    rows: tuple[int, int] | None = None,
+    samples: tuple[int, int] | None = None,
+    rasterize_group=None,
 ) -> RenderOutput:
     """Render one camera (leading dim 1) with the full method; returns the
     linear-space blur average and the mid-exposure depth.
 
     means2d_probe: optional (C, 2) zeros added to every sub-frame's projected
     means; its gradient is the accumulated screen-space positional gradient
-    the densification statistics read."""
+    the densification statistics read.
+
+    The mesh renders a part of this (`parallel.sharding`): rows = (row0, h)
+    renders the row strip [row0, row0 + h) with scanline times over the full
+    height; samples = (lo, hi) renders only those sub-frames of the S, each
+    output then their share of the blur average (sum / S, depth None unless
+    the mid-exposure sample is among them); rasterize_group, with the
+    signature of `rasterize.rasterize_fused`, composites each anchor group in
+    its place (the Gaussian exchanges hook in here) and forces the fused
+    route."""
     motion = camera_motion(params, camera, config, is_eval_camera)
     g = params.gaussians
     opac = torch.sigmoid(g.opacities_logit) * g.alive.detach()
     w, h = motion.camera.width, motion.camera.height
+    row0 = 0
     raster_kw = dict(
-        tile_size=config.tile_size, max_per_tile=config.max_per_tile,
-        max_tiles_per_gaussian=config.max_tiles_per_gaussian, impl=config.impl,
-        max_total_entries=config.max_total_entries,
+        rolling_shutter_time=motion.rs_time, tile_size=config.tile_size,
+        max_per_tile=config.max_per_tile, max_tiles_per_gaussian=config.max_tiles_per_gaussian,
+        impl=config.impl, max_total_entries=config.max_total_entries,
     )
+    if rows is not None:
+        row0, raster_kw["rs_full_height"], h = rows[0], h, rows[1]
+        raster_kw["rs_row_offset"] = row0
     eps = motion.eps
+    n_s = eps.shape[0]
+    lo, hi = samples if samples is not None else (0, n_s)
+
+    def inputs(t_s):
+        return subframe_inputs(params, motion, config, sh_degree_active, t_s, means2d_probe,
+                               row0=row0)
 
     def render_subframe(t_s):
-        proj, colors = subframe_inputs(params, motion, config, sh_degree_active, t_s,
-                                       means2d_probe)
-        return rasterize.rasterize(proj, colors, opac, w, h, background,
-                                   rolling_shutter_time=motion.rs_time, **raster_kw)
+        proj, colors = inputs(t_s)
+        return rasterize.rasterize(proj, colors, opac, w, h, background, **raster_kw)
 
-    if eps.shape[0] == 1:
+    fused = rasterize_group is not None or (config.blur_mode == "fused" and n_s > 1)
+    if n_s == 1 and not fused:
         return render_subframe(eps[0])
-    if config.blur_mode == "fused":
-        n_s = eps.shape[0]
+    if fused:
+        rasterize_group = rasterize_group or rasterize.rasterize_fused
         n_a = max(min(config.blur_anchors, n_s), 1)
-        sizes = [n_s // n_a + (1 if a < n_s % n_a else 0) for a in range(n_a)]
-        offsets = [sum(sizes[:a]) for a in range(n_a)]
         mid_global = n_s // 2
-        per_anchor, mid_anchor = [], 0
-        for a in range(n_a):
-            eps_g = eps[offsets[a]:offsets[a] + sizes[a]]
-            t_a = eps_g.mean()
-            proj, colors = subframe_inputs(params, motion, config, sh_degree_active, t_a,
-                                           means2d_probe)
-            in_group = offsets[a] <= mid_global < offsets[a] + sizes[a]
+        per_anchor, counts, mid_anchor = [], [], None
+        for a_lo, a_hi in anchor_groups(n_s, n_a):
+            s_lo, s_hi = max(lo, a_lo), min(hi, a_hi)
+            if s_lo >= s_hi:
+                continue
+            t_a = eps[a_lo:a_hi].mean()
+            proj, colors = inputs(t_a)
+            in_group = s_lo <= mid_global < s_hi
             if in_group:
-                mid_anchor = a
-            per_anchor.append(rasterize.rasterize_fused(
-                proj, colors, opac, w, h, background, eps=eps_g - t_a,
-                rolling_shutter_time=motion.rs_time, reduce="mean",
-                mid_index=(mid_global - offsets[a]) if in_group else None,
+                mid_anchor = len(per_anchor)
+            per_anchor.append(rasterize_group(
+                proj, colors, opac, w, h, background, eps=eps[s_lo:s_hi] - t_a,
+                reduce="mean", mid_index=(mid_global - s_lo) if in_group else None,
                 **raster_kw,
             ))
+            counts.append(s_hi - s_lo)
         # the blur average is the group-size-weighted mean of the group means
-        rgb = sum(sz * o.rgb for sz, o in zip(sizes, per_anchor)) / n_s
-        alpha = sum(sz * o.alpha for sz, o in zip(sizes, per_anchor)) / n_s
-        T = sum(sz * o.transmittance for sz, o in zip(sizes, per_anchor)) / n_s
-        return RenderOutput(rgb=rgb, alpha=alpha, depth=per_anchor[mid_anchor].depth,
-                            transmittance=T)
+        rgb = sum(c * o.rgb for c, o in zip(counts, per_anchor)) / n_s
+        alpha = sum(c * o.alpha for c, o in zip(counts, per_anchor)) / n_s
+        T = sum(c * o.transmittance for c, o in zip(counts, per_anchor)) / n_s
+        depth = None if mid_anchor is None else per_anchor[mid_anchor].depth
+        return RenderOutput(rgb=rgb, alpha=alpha, depth=depth, transmittance=T)
     if config.blur_mode != "exact":
         raise ValueError(f"unknown blur_mode {config.blur_mode!r}")
-    outs = [render_subframe(eps[s]) for s in range(eps.shape[0])]
+    outs = [render_subframe(eps[s]) for s in range(lo, hi)]
     return RenderOutput(
-        rgb=torch.stack([o.rgb for o in outs]).mean(dim=0),
-        alpha=torch.stack([o.alpha for o in outs]).mean(dim=0),
-        depth=outs[len(outs) // 2].depth,
-        transmittance=torch.stack([o.transmittance for o in outs]).mean(dim=0),
+        rgb=torch.stack([o.rgb for o in outs]).sum(dim=0) / n_s,
+        alpha=torch.stack([o.alpha for o in outs]).sum(dim=0) / n_s,
+        depth=outs[n_s // 2 - lo].depth if lo <= n_s // 2 < hi else None,
+        transmittance=torch.stack([o.transmittance for o in outs]).sum(dim=0) / n_s,
     )
 
 
@@ -419,6 +447,19 @@ def binning_counts(params: ModelParams, camera: Cameras, config: SplatfactoConfi
     )
 
 
+def scale_regularizer(g: GaussianParams, config: SplatfactoConfig,
+                      n_alive: torch.Tensor) -> torch.Tensor:
+    """The scale-ratio regulariser: the weighted excess of each alive
+    Gaussian's max / min scale over `max_gauss_ratio`, summed over g and
+    divided by n_alive (the whole cloud's alive count; g may be a shard)."""
+    s = torch.exp(g.scales_log)
+    # amax / amin split the gradient evenly between tied scales, as
+    # jnp.max / jnp.min do (isotropic seeds tie all three)
+    ratio = torch.amax(s, dim=-1) / torch.clamp(torch.amin(s, dim=-1), min=1e-12)
+    excess = torch.clamp(ratio, min=config.max_gauss_ratio) - config.max_gauss_ratio
+    return config.scale_reg_weight * ((excess * g.alive.detach()).sum() / n_alive)
+
+
 def compute_losses(pred_rgb: torch.Tensor, gt_rgb: torch.Tensor, params: ModelParams,
                    config: SplatfactoConfig) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """(1 - l) L1 + l (1 - SSIM) on the black-levelled images, plus the
@@ -432,14 +473,7 @@ def compute_losses(pred_rgb: torch.Tensor, gt_rgb: torch.Tensor, params: ModelPa
     aux = {"l1": l1, "ssim": ssim_val}
     if config.use_scale_regularization:
         g = params.gaussians
-        s = torch.exp(g.scales_log)
-        # amax / amin split the gradient evenly between tied scales, as
-        # jnp.max / jnp.min do (isotropic seeds tie all three)
-        ratio = torch.amax(s, dim=-1) / torch.clamp(torch.amin(s, dim=-1), min=1e-12)
-        excess = torch.clamp(ratio, min=config.max_gauss_ratio) - config.max_gauss_ratio
-        alive = g.alive.detach()
-        n_alive = torch.clamp(alive.sum(), min=1.0)
-        scale_reg = config.scale_reg_weight * ((excess * alive).sum() / n_alive)
+        scale_reg = scale_regularizer(g, config, torch.clamp(g.alive.detach().sum(), min=1.0))
         loss = loss + scale_reg
         aux["scale_reg"] = scale_reg
     pen = cam_opt.camera_opt_penalty(params.camera_opt, config.camera_optimizer,

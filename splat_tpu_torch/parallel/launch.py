@@ -1,7 +1,7 @@
 """Start one worker per rank of a mesh.
 
 `launch(fn, world, args, device)` runs `fn(rank, world, device, *args)` on
-every rank with `torch.distributed` initialized (`sharding.init_distributed`:
+every rank (CUDA unless `device` says otherwise) with `torch.distributed` initialized (`sharding.init_distributed`:
 NCCL on CUDA, one card per rank; gloo on the CPU) and tears the process group
 down after it:
 
@@ -24,6 +24,7 @@ from pathlib import Path
 import torch
 import torch.distributed as dist
 
+from ..device import resolve_device
 from .sharding import init_distributed
 
 
@@ -73,12 +74,13 @@ def _worker(local_rank: int, fn, args: tuple, device_type: str, world: int,
         dist.destroy_process_group()
 
 
-def launch(fn, world: int, args: tuple = (), device: str | torch.device = "cpu"):
-    """fn(rank, world, device, *args) on `world` ranks; returns rank 0's
-    result when it ran in this process (one rank, or under torchrun), else
-    None. fn must be importable by name (a module-level function) when the
-    ranks are spawned."""
-    device_type = torch.device(device).type
+def launch(fn, world: int, args: tuple = (), device: str | torch.device | None = None):
+    """fn(rank, world, device, *args) on `world` ranks, on CUDA unless the
+    caller asks otherwise (`device.resolve_device`); returns rank 0's result
+    when it ran in this process (one rank, or under torchrun), else None. fn
+    must be importable by name (a module-level function) when the ranks are
+    spawned."""
+    device_type = resolve_device(device).type
     if under_torchrun():
         started = int(os.environ["WORLD_SIZE"])
         if started != world:

@@ -53,10 +53,12 @@ import torch.distributed as dist
 
 from ..cameras import optimizers as cam_opt
 from ..cameras.cameras import Cameras
+from ..device import resolve_device
 from ..models import splatfacto as sf
 from ..models import strategy as st
 from ..ops import projection, rasterize
 from ..ops.cuda import pack_param_table
+from ..ops.reference import RenderOutput
 from ..ops.ssim import ssim_map
 from ..ops.tiling import tile_wh
 from .collectives import Axis, all_gather, all_reduce_sum, all_to_all, from_next, gather_, reduce_
@@ -162,23 +164,19 @@ def make_mesh(shape: dict[str, int]) -> Mesh:
     return Mesh(shape, rank, axes)
 
 
-def init_distributed(backend: str | None = None, init_method: str | None = None,
-                     world_size: int | None = None, rank: int | None = None,
-                     device: str | torch.device | None = None) -> bool:
-    """Initialize `torch.distributed` (NCCL for CUDA devices, gloo for the
-    CPU; never gloo on CUDA tensors). Returns True when a process group is
-    up. Without arguments it reads the launch environment (`torchrun`'s
-    RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT); with nothing to read it is a
-    no-op single-process run. A failure raises when arguments were given or
-    the environment shows a multi-process launch (WORLD_SIZE > 1,
-    MASTER_ADDR, TORCHELASTIC_RUN_ID): each process would otherwise train
-    alone and silently."""
+def init_distributed(init_method: str | None = None, world_size: int | None = None,
+                     rank: int | None = None, device: str | torch.device | None = None) -> bool:
+    """Initialize `torch.distributed` for ranks on `device` (CUDA unless the
+    caller asks otherwise; `device.resolve_device`): NCCL on CUDA, gloo on
+    the CPU. Returns True when a process group is up. Without arguments it
+    reads the launch environment (`torchrun`'s RANK, WORLD_SIZE, MASTER_ADDR,
+    MASTER_PORT); with nothing to read it is a no-op single-process run. A
+    failure raises when arguments were given or the environment shows a
+    multi-process launch (WORLD_SIZE > 1, MASTER_ADDR, TORCHELASTIC_RUN_ID):
+    each process would otherwise train alone and silently."""
     if dist.is_initialized():
         return True
-    dev = torch.device(device) if device is not None else torch.device("cpu")
-    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
-    if backend == "gloo" and dev.type == "cuda":
-        raise ValueError("gloo on CUDA tensors: the mesh runs NCCL on the card")
+    backend = "nccl" if resolve_device(device).type == "cuda" else "gloo"
     kw = {k: v for k, v in (("init_method", init_method), ("world_size", world_size),
                             ("rank", rank)) if v is not None}
     try:
@@ -282,28 +280,31 @@ def _depth_slab_exchange(proj: projection.ProjectedGaussians, colors: torch.Tens
     Returns (ProjectedGaussians, colours, opacities, overflow) for this
     rank's slab; zero rows are padding (opacity 0, culled)."""
     table = pack_param_table(proj, colors, opacities)[:-1]
-    npar = table.shape[1]
     rows = torch.cat([table, proj.extents], dim=1)
-    n_loc, n_col = rows.shape
     d = gauss.size
-    dev = rows.device
-    slab = slab_ids(table[:, 9], table[:, 8] > 0, d, gauss)
-    order = torch.sort(slab, stable=True).indices
-    slab_sorted = slab[order]
-    rows_sorted = rows[order]
-    edges = torch.searchsorted(slab_sorted, torch.arange(d + 1, device=dev), side="left")
-    cnt = edges[1:] - edges[:-1]
+    send, overflow = slab_buckets(rows, slab_ids(table[:, 9], table[:, 8] > 0, d, gauss), d,
+                                  slack)
+    recv = all_to_all(send, gauss).reshape(-1, rows.shape[1])
+    synth, colors_s, op_s = _from_rows(recv, table.shape[1])
+    return synth, colors_s, op_s, reduce_(overflow, gauss)
 
+
+def slab_buckets(rows: torch.Tensor, slab: torch.Tensor, d: int, slack: float):
+    """This rank's rows cut into d send buckets by slab: (d, C, n_col) with
+    C = slack * N_loc / d rounded up to 8 rows, bucket k holding the rows of
+    slab k in their order (stable sort) and zero rows after them; and the
+    count of rows past a bucket's C, which are dropped."""
+    n_loc, n_col = rows.shape
+    dev = rows.device
+    order = torch.sort(slab, stable=True).indices
+    edges = torch.searchsorted(slab[order], torch.arange(d + 1, device=dev), side="left")
+    cnt = edges[1:] - edges[:-1]
     c_send = min(n_loc, max(8, int(-(-slack * n_loc // (8 * d)) * 8)))
     j = torch.arange(c_send, device=dev)[None, :]
-    idx = edges[:-1, None] + j
     valid = j < torch.clamp(cnt, max=c_send)[:, None]
-    rows_pad = torch.cat([rows_sorted, rows.new_zeros((c_send, n_col))])
-    send = torch.where(valid[..., None], rows_pad[idx], 0.0)      # (d, c_send, n_col)
-    overflow = reduce_(torch.clamp(cnt - c_send, min=0).sum(), gauss)
-    recv = all_to_all(send, gauss).reshape(d * c_send, n_col)
-    synth, colors_s, op_s = _from_rows(recv, npar)
-    return synth, colors_s, op_s, overflow
+    rows_pad = torch.cat([rows[order], rows.new_zeros((c_send, n_col))])
+    send = torch.where(valid[..., None], rows_pad[edges[:-1, None] + j], 0.0)
+    return send, torch.clamp(cnt - c_send, min=0).sum()
 
 
 def slab_ids(depth: torch.Tensor, live: torch.Tensor, d: int, gauss: Axis) -> torch.Tensor:
@@ -339,82 +340,43 @@ def _combine_depth_slabs(rgb_local: torch.Tensor, t_local: torch.Tensor, gauss: 
     return over(all_gather(rgb_local, gauss), all_gather(t_local, gauss))
 
 
-def _anchor_groups(n_s: int, n_a: int) -> list[tuple[int, int]]:
-    """The single-device fused mode's anchor groups as [lo, hi) sample ranges."""
-    sizes = [n_s // n_a + (1 if a < n_s % n_a else 0) for a in range(n_a)]
-    offsets = [sum(sizes[:a]) for a in range(n_a)]
-    return [(o, o + s) for o, s in zip(offsets, sizes)]
-
-
 def _render_strip_linear(params: sf.ModelParams, camera: Cameras, config: sf.SplatfactoConfig,
                          sh_degree_active, background: torch.Tensor, strip_h: int, row0: int,
                          samples: tuple[int, int], gauss: Axis,
                          means2d_probe: torch.Tensor | None = None, is_eval: bool = False):
-    """The linear-space rgb SUM over sub-frames [lo, hi) of the exposure for
-    the row strip [row0, row0 + strip_h): (strip_h, W, 3), and an info dict
-    (the depth slabs' overflow count). The math of `sf.render_camera` with
-    the means in strip coordinates and scanline times over the full height."""
-    motion = sf.camera_motion(params, camera, config, is_eval)
-    g = params.gaussians
-    opac = torch.sigmoid(g.opacities_logit) * g.alive.detach()
-    w, full_h = motion.camera.width, motion.camera.height
-    raster_kw = dict(
-        rolling_shutter_time=motion.rs_time, tile_size=config.tile_size,
-        max_per_tile=config.max_per_tile, max_tiles_per_gaussian=config.max_tiles_per_gaussian,
-        impl=config.impl, max_total_entries=config.max_total_entries,
-        rs_full_height=full_h, rs_row_offset=row0)
-    eps = motion.eps
-    lo, hi = samples
-    info = {"slab_overflow": torch.zeros((), dtype=torch.int64, device=opac.device)}
-
-    def inputs(t_s):
-        return sf.subframe_inputs(params, motion, config, sh_degree_active, t_s, means2d_probe,
-                                  row0=row0)
-
-    fused = config.blur_mode == "fused" and eps.shape[0] > 1
-    if gauss.size > 1 and not fused and eps.shape[0] > 1:
-        raise ValueError("gauss-sharded meshes need blur_mode='fused' (one projection per "
-                         "anchor; exact per-sub-frame projection would trade the table per "
-                         "sample)")
-    if not fused and gauss.size == 1:
-        if config.blur_mode not in ("fused", "exact"):
-            raise ValueError(f"unknown blur_mode {config.blur_mode!r}")
-        rgb = 0.0
-        for s in range(lo, hi):
-            proj, colors = inputs(eps[s])
-            rgb = rgb + rasterize.rasterize(proj, colors, opac, w, strip_h, background,
-                                            **raster_kw).rgb
-        return rgb, info
-
-    n_a = max(min(config.blur_anchors, eps.shape[0]), 1) if fused else 1
-    rgb = 0.0
-    for a_lo, a_hi in _anchor_groups(eps.shape[0], n_a):
-        s_lo, s_hi = max(lo, a_lo), min(hi, a_hi)
-        if s_lo >= s_hi:
-            continue
-        t_a = eps[a_lo:a_hi].mean()
-        proj, colors = inputs(t_a)
-        eps_rel = eps[s_lo:s_hi] - t_a
-        if gauss.size > 1 and config.gauss_shard_mode == "slab":
-            proj, colors, op, overflow = _depth_slab_exchange(proj, colors, opac, gauss,
-                                                              config.slab_slack)
-            info["slab_overflow"] = info["slab_overflow"] + overflow
-            out = rasterize.rasterize_fused(proj, colors, op, w, strip_h,
-                                            torch.zeros_like(background), eps=eps_rel,
-                                            **raster_kw)
-            rgb_s, t_s = _combine_depth_slabs(out.rgb, out.transmittance, gauss)
-            rgb = rgb + (rgb_s + t_s[..., None] * background).sum(dim=0)
-            continue
-        if gauss.size > 1:
-            if config.gauss_shard_mode != "gather":
-                raise ValueError(f"unknown gauss_shard_mode {config.gauss_shard_mode!r}")
-            proj, colors, op = _all_gather_projected(proj, colors, opac, gauss)
+    """The row strip [row0, row0 + strip_h) of sub-frames [lo, hi)'s share of
+    the linear-space blur average (their sum over S): (strip_h, W, 3), and an
+    info dict (the depth slabs' overflow count). `sf.render_camera` on the
+    strip and the samples, with the gauss axis's exchange before each anchor
+    group's compositing."""
+    info = {"slab_overflow": torch.zeros((), dtype=torch.int64, device=background.device)}
+    group = None
+    if gauss.size > 1:
+        if config.blur_mode != "fused" and config.blur_samples > 1:
+            raise ValueError("gauss-sharded meshes need blur_mode='fused' (one projection per "
+                             "anchor; exact per-sub-frame projection would trade the table per "
+                             "sample)")
+        if config.gauss_shard_mode == "gather":
+            def group(proj, colors, opac, *args, **kw):
+                return rasterize.rasterize_fused(*_all_gather_projected(proj, colors, opac, gauss),
+                                                 *args, **kw)
+        elif config.gauss_shard_mode == "slab":
+            def group(proj, colors, opac, w, h, bg, eps, reduce, mid_index, **kw):
+                proj, colors, op, overflow = _depth_slab_exchange(proj, colors, opac, gauss,
+                                                                  config.slab_slack)
+                info["slab_overflow"] = info["slab_overflow"] + overflow
+                out = rasterize.rasterize_fused(proj, colors, op, w, h, torch.zeros_like(bg),
+                                                eps=eps, **kw)
+                rgb_s, t_s = _combine_depth_slabs(out.rgb, out.transmittance, gauss)
+                t_mean = t_s.mean(dim=0)
+                return RenderOutput(rgb=(rgb_s + t_s[..., None] * bg).mean(dim=0),
+                                    alpha=1.0 - t_mean, depth=None, transmittance=t_mean)
         else:
-            op = opac
-        out = rasterize.rasterize_fused(proj, colors, op, w, strip_h, background, eps=eps_rel,
-                                        reduce="mean", **raster_kw)
-        rgb = rgb + out.rgb * (s_hi - s_lo)
-    return rgb, info
+            raise ValueError(f"unknown gauss_shard_mode {config.gauss_shard_mode!r}")
+    out = sf.render_camera(params, camera, config, sh_degree_active, background, is_eval,
+                           means2d_probe, rows=(row0, strip_h), samples=samples,
+                           rasterize_group=group)
+    return out.rgb, info
 
 
 # ------------------------------------------------------------- the loss
@@ -483,13 +445,12 @@ def sharded_loss(mesh: Mesh, params: sf.ModelParams, camera: Cameras, gt: torch.
     background's (every rank draws alike)."""
     strip_h, row0 = _strip(mesh, camera, config)
     full_h, width = camera.height, camera.width
-    s_total = max(config.blur_samples, 1)
     bg = sf.background_color(params, config, generator)
     sh_deg = sf.active_sh_degree(config, step)
-    rgb_sum, info = _render_strip_linear(
+    rgb_share, info = _render_strip_linear(
         params, camera, config, sh_deg, bg, strip_h, row0, _samples(mesh, config),
         mesh.axes["gauss"], means2d_probe=probe, is_eval=is_eval)
-    rgb_mean = all_reduce_sum(rgb_sum, mesh.axes["blur"]) / s_total
+    rgb_mean = all_reduce_sum(rgb_share, mesh.axes["blur"])
     pred = sf.apply_black_level(sf.gamma_encode(rgb_mean, config), config)
     gt_below = sf.apply_black_level(gt[row0:], config)
     l1 = torch.abs(pred - gt_below[:strip_h]).sum() / (full_h * width * 3)
@@ -500,14 +461,10 @@ def sharded_loss(mesh: Mesh, params: sf.ModelParams, camera: Cameras, gt: torch.
     share = core / (mesh.shape["gauss"] * mesh.shape["blur"] * mesh.shape["data"])
     if config.use_scale_regularization:
         g = params.gaussians
-        s = torch.exp(g.scales_log)
-        ratio = torch.amax(s, dim=-1) / torch.clamp(torch.amin(s, dim=-1), min=1e-12)
-        excess = torch.clamp(ratio, min=config.max_gauss_ratio) - config.max_gauss_ratio
-        alive = g.alive.detach()
-        n_alive = torch.clamp(reduce_(alive.sum().clone(), mesh.axes["gauss"]), min=1.0)
+        n_alive = torch.clamp(reduce_(g.alive.detach().sum(), mesh.axes["gauss"]), min=1.0)
         # once per shard; every rank builds the same graph (a zero weight elsewhere)
         once = 1.0 if mesh.owner else 0.0
-        share = share + once * config.scale_reg_weight * ((excess * alive).sum() / n_alive)
+        share = share + once * sf.scale_regularizer(g, config, n_alive)
     pen = cam_opt.camera_opt_penalty(params.camera_opt, config.camera_optimizer,
                                         device=pred.device)
     share = share + (1.0 if mesh.rank == 0 else 0.0) * pen
@@ -595,10 +552,10 @@ def sharded_render(mesh: Mesh, params: sf.ModelParams, camera: Cameras,
     each strip rendered by its tile ranks, the blur sums added, the strips
     gathered."""
     strip_h, row0 = _strip(mesh, camera, config)
-    rgb_sum, _ = _render_strip_linear(
+    rgb_share, _ = _render_strip_linear(
         params, camera, config, sf.active_sh_degree(config, step), background, strip_h, row0,
         _samples(mesh, config), mesh.axes["gauss"], is_eval=is_eval)
-    rgb = all_reduce_sum(rgb_sum, mesh.axes["blur"]) / max(config.blur_samples, 1)
+    rgb = all_reduce_sum(rgb_share, mesh.axes["blur"])
     return all_gather(rgb, mesh.axes["tile"]).reshape(camera.height, camera.width, 3)
 
 

@@ -210,7 +210,7 @@ def _trainer_case(mesh, case):
            "losses": np.asarray([r["loss"] for r in hist]),
            "refines": np.asarray([e["step"] for e in t.refine_events]),
            "renders": torch.stack([t.render_eval(i) for i in range(len(t.eval_cams))]).numpy()}
-    with t._global_view():
+    with t.global_view():
         out["means"] = t.params.gaussians.means.detach().numpy().copy()
     if case.get("checkpoint"):
         ckpt = Path(case["out"]) / f"ckpt_{case['id']}"
@@ -263,7 +263,7 @@ def _spawn(tmp_path_factory, name, world, cases):
     threads = os.environ.get("OMP_NUM_THREADS")
     os.environ["OMP_NUM_THREADS"] = "1"          # the spawned ranks inherit it
     try:
-        launch.launch(run_cases, world, args=(cases, str(out)))
+        launch.launch(run_cases, world, args=(cases, str(out)), device="cpu")
     finally:
         if threads is None:
             del os.environ["OMP_NUM_THREADS"]
@@ -575,12 +575,48 @@ def test_resolve_mesh_matches_jax(mc, s, img_h):
 def test_init_distributed_refuses_a_silent_single_process(monkeypatch):
     for key in ("MASTER_ADDR", "MASTER_PORT", "TORCHELASTIC_RUN_ID", "RANK", "WORLD_SIZE"):
         monkeypatch.delenv(key, raising=False)
-    assert sharding.init_distributed() is False          # nothing to read: one process
+    assert sharding.init_distributed(device="cpu") is False   # nothing to read: one process
     monkeypatch.setenv("WORLD_SIZE", "2")
     monkeypatch.setenv("RANK", "0")
     with pytest.raises(RuntimeError, match="refusing to continue"):
+        sharding.init_distributed(device="cpu")
+    assert not torch.distributed.is_initialized()
+
+
+def test_mesh_entry_points_take_cuda_unless_asked(monkeypatch):
+    """`launch` and `init_distributed` run on the card by default, as every
+    entry point of the port does: with no card they raise, never fall back
+    to gloo on the CPU."""
+    for key in ("MASTER_ADDR", "MASTER_PORT", "TORCHELASTIC_RUN_ID", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(key, raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch.launch(run_cases, 1, args=([], "unused"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         sharding.init_distributed()
     assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.parametrize("slack,d", [(2.0, 4), (0.5, 2), (2.0, 1)])
+def test_slab_buckets_hold_each_slabs_rows_in_order(slack, d):
+    """Bucket k holds slab k's rows in their order, then zero rows; the rows
+    past a bucket's capacity are dropped and counted; rows of slab d (not
+    live) go nowhere."""
+    gen = torch.Generator().manual_seed(3)
+    rows = torch.rand((64, 18), generator=gen) + 0.5
+    slab = torch.randint(0, d + 1, (64,), generator=gen)
+    send, overflow = sharding.slab_buckets(rows, slab, d, slack)
+    cap = send.shape[1]
+    assert cap % 8 == 0 or cap == rows.shape[0]
+    dropped = 0
+    for k in range(d):
+        mine = rows[slab == k]
+        kept = mine[:cap]
+        dropped += mine.shape[0] - kept.shape[0]
+        assert torch.equal(send[k, :kept.shape[0]], kept)
+        assert not send[k, kept.shape[0]:].any()
+    assert int(overflow) == dropped
+    assert (dropped > 0) == (slack < 1.0)
 
 
 # ---------------------------------------------------------------- trainer
