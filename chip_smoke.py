@@ -349,12 +349,12 @@ def target_tree(seed=SEED):
     return dict(tree, gaussians=g)
 
 
-def window_ms(times: list[float], window: int) -> list[float]:
-    """Per-step ms over consecutive windows of `window` steps: the trainer
-    waits for the card only at a window's last step, so single steps read the
-    enqueue time and only a window's sum is the time the work took."""
-    return [sum(times[i:i + window]) * 1e3 / window
-            for i in range(0, len(times) - window + 1, window)]
+def window_ms(windows: list[tuple[float, int]]) -> list[float]:
+    """Per-step ms of each of the trainer's synchronised windows (its
+    `StepTimer.windows`: seconds from one sync to the next, and the steps
+    between): the trainer waits for the card only at a window's end, so only
+    a window's time is the time the work took."""
+    return [sec * 1e3 / steps for sec, steps in windows]
 
 
 def load_probe(name: str):
@@ -1860,7 +1860,7 @@ def main() -> int:
           f"({n_eval_steps} eval-camera steps); fullest tile at the probes {fullest}; "
           f"peak memory {loop_peak_gib:.2f} GiB; eval after: psnr {after['psnr']:.3f} dB, "
           f"ssim {after['ssim']:.4f}")
-    windows = window_ms(loop.timer.times, loop_tc.sync_every)
+    windows = window_ms(loop.timer.windows)
     spans = {"steps 1-40": windows[:4], "41-80": windows[4:8], "81-200": windows[8:],
              "all": windows}
     for label, w in spans.items():

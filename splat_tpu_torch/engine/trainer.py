@@ -23,17 +23,19 @@ probes the unclamped per-tile populations to grow `max_per_tile` or
 `max_total_entries`, and resets the opacities on schedule. The host reads
 device values only at refine and log boundaries. Random draws (camera order,
 split offsets, the random background) come from `torch.Generator`s seeded
-with `TrainerConfig.seed`.
+with `TrainerConfig.seed`. Each refine's event carries binning's counts over
+the steps since the last one (`utils/profiling.BinningCounters`), and the
+loop's phases and the step's layers open `utils/profiling.span`s.
 
 A checkpoint is a directory `step_N/` holding `state.npz` (numpy arrays under
 flat dotted keys, no pickled objects) and `meta.json`: every model leaf, the
 step, Adam's `exp_avg`, `exp_avg_sq` and `step` per leaf and the decays' count,
 the eval optimizer's state, the strategy accumulators, and the sampling stream
 (the three generators' states, the epoch order, the last reset step, the
-tile-overflow streak), so save -> fresh trainer -> load -> run continues the
-trajectory of an uninterrupted run bit for bit. The JAX package's Orbax trees
-are not read here (`models.convert.trainer_state_from_numpy` takes one as
-numpy arrays).
+tile-overflow streak, binning's counts since the last refine), so save ->
+fresh trainer -> load -> run continues the trajectory of an uninterrupted run
+bit for bit. The JAX package's Orbax trees are not read here
+(`models.convert.trainer_state_from_numpy` takes one as numpy arrays).
 
 With a `mesh` (`parallel/sharding.py`, one process per rank) the step goes
 through `sharded_train_step` and the eval-camera step through
@@ -70,7 +72,8 @@ from ..ops import lpips as lpips_mod
 from ..ops.ssim import psnr as psnr_fn
 from ..ops.ssim import ssim as ssim_fn
 from ..parallel import sharding
-from ..utils.profiling import StepTimer
+from ..utils import profiling
+from ..utils.profiling import StepTimer, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,7 +100,7 @@ class TrainerConfig:
     checkpoint_every: int = 5000
     log_every: int = 100
     # wait for the device only every k steps, so the host runs ahead of it;
-    # the step-time percentiles then aggregate whole windows
+    # the step times are those of the windows between two waits
     sync_every: int = 10
     # the JAX package runs this many steps per dispatch through lax.scan, the
     # same step sequence; this package dispatches eagerly, so the field is
@@ -233,17 +236,20 @@ def train_step(params: sf.ModelParams, optimizer: Optimizer, strat_state: st.Str
     loss terms and n_visible, the Gaussians whose probe gradient is nonzero.
     generator feeds background_color "random"."""
     sh_deg = sf.active_sh_degree(config, step)
-    optimizer.zero_grad()
+    with span("splat.optimizer"):
+        optimizer.zero_grad()
     probe = torch.zeros_like(params.gaussians.means[:, :2], requires_grad=True)
     # the background from the differentiated params: "auto" learns it
     bg = sf.background_color(params, config, generator)
     out = sf.render_camera(params, camera, config, sh_deg, bg, means2d_probe=probe)
-    loss, aux = sf.compute_losses(sf.gamma_encode(out.rgb, config), gt, params, config)
+    with span("splat.loss"):
+        loss, aux = sf.compute_losses(sf.gamma_encode(out.rgb, config), gt, params, config)
     loss.backward()
-    optimizer.step()
-    visible = torch.linalg.norm(probe.grad, dim=-1) > 0
-    strat_state = st.accumulate_grads(strat_state, probe.grad, visible, camera.width,
-                                      camera.height)
+    with span("splat.optimizer"):
+        optimizer.step()
+        visible = torch.linalg.norm(probe.grad, dim=-1) > 0
+        strat_state = st.accumulate_grads(strat_state, probe.grad, visible, camera.width,
+                                          camera.height)
     aux = {k: v.detach() for k, v in aux.items()}
     aux["n_visible"] = visible.sum()
     return loss.detach(), aux, strat_state
@@ -278,12 +284,14 @@ def eval_opt_step(params: sf.ModelParams, eval_optimizer: EvalOptimizer,
     bg = sf.background_color(frozen, config, generator)
     out = sf.render_camera(frozen, camera, config, sf.active_sh_degree(config, step), bg,
                            is_eval_camera=True)
-    loss, _ = sf.compute_losses(sf.gamma_encode(out.rgb, config), gt, frozen, config)
+    with span("splat.loss"):
+        loss, _ = sf.compute_losses(sf.gamma_encode(out.rgb, config), gt, frozen, config)
     grads = torch.autograd.grad(loss, eval_optimizer.leaves, allow_unused=True)
-    for p, grad in zip(eval_optimizer.leaves, grads):
-        p.grad = grad
-    eval_optimizer.adam.step()
-    eval_optimizer.adam.zero_grad(set_to_none=True)
+    with span("splat.optimizer"):
+        for p, grad in zip(eval_optimizer.leaves, grads):
+            p.grad = grad
+        eval_optimizer.adam.step()
+        eval_optimizer.adam.zero_grad(set_to_none=True)
     return loss.detach()
 
 
@@ -342,10 +350,13 @@ class Trainer:
         self.step = 0
         self._last_reset_step = -(10**9)
         self.history: list[dict] = []
-        # one record per refine: the counts, and whether the capacity or the
-        # tile capacity grew and the opacities were reset at that boundary
+        # one record per refine: the counts, whether the capacity or the tile
+        # capacity grew and the opacities were reset at that boundary, and
+        # binning's counts over the steps since the last refine
         self.refine_events: list[dict] = []
         self.timer = StepTimer(device=dev)
+        self.binning_counters = profiling.BinningCounters()
+        self._binning_rates: dict[str, float] = {}
 
     def _localize(self, cams: Cameras) -> Cameras:
         fields = {k: getattr(cams, k).to(self.device) for k in Cameras._tensor_fields}
@@ -508,6 +519,23 @@ class Trainer:
                 old.copy_(new)
         return {k: int(v) for k, v in info.items()}
 
+    @contextlib.contextmanager
+    def _step_scope(self, name: str):
+        """One step of `run` under the span `name`, its binnings counted."""
+        with profiling.counting(self.binning_counters), span(name):
+            yield
+
+    def _binning_event(self) -> dict:
+        """Binning's counts since the last refine, for its event; the rates
+        the next history records carry."""
+        c = self.binning_counters.take()
+        if c["binnings"] > 0:
+            self._binning_rates = {
+                "binning_yield": round(c["real"] / max(c["candidates"], 1), 6),
+                "landed_per_binning": round(c["landed"] / c["binnings"], 1)}
+        return {"binnings": c["binnings"], "binning_candidates": c["candidates"],
+                "binning_real": c["real"], "binning_landed": c["landed"]}
+
     def run(self, max_steps: int | None = None, progress_cb: Callable | None = None):
         """Train for max_steps more steps (default trainer_config.max_steps);
         returns the history, one record per log_every steps."""
@@ -516,24 +544,26 @@ class Trainer:
         steps = max_steps if max_steps is not None else tc.max_steps
         t0 = time.time()
         for it in range(steps):
+            # the timer's windows run sync to sync from the run's first step
+            self.timer.start(fresh=it == 0)
             cfg = self.model_config
             level_cams, level_imgs = self._level_data(self._resolution_level())
             if self.mesh is None:
                 ci = self._next_camera_index(n_train)
                 cam, gt = level_cams[ci], level_imgs[ci]
                 self._probe_cam = cam
-                self.timer.start()
-                loss, _aux, self.strat_state = train_step(
-                    self.params, self.optimizer, self.strat_state, cfg, cam, gt, self.step,
-                    self._bg_generator)
+                with self._step_scope("splat.train_step"):
+                    loss, _aux, self.strat_state = train_step(
+                        self.params, self.optimizer, self.strat_state, cfg, cam, gt, self.step,
+                        self._bg_generator)
             else:
                 batch = self._next_camera_indices(n_train, self.data_batch)
                 ci = batch[self.mesh.coords["data"]]
                 self._probe_cam = level_cams[batch[0]]
-                self.timer.start()
-                loss, _aux, self.strat_state = sharding.sharded_train_step(
-                    self.mesh, self.params, self.optimizer, self.strat_state, cfg,
-                    level_cams[ci], level_imgs[ci], self.step, self._bg_generator)
+                with self._step_scope("splat.train_step"):
+                    loss, _aux, self.strat_state = sharding.sharded_train_step(
+                        self.mesh, self.params, self.optimizer, self.strat_state, cfg,
+                        level_cams[ci], level_imgs[ci], self.step, self._bg_generator)
             self.timer.stop(sync=((self.step + 1) % tc.sync_every == 0 or it + 1 == steps
                                   or (self.step + 1) % cfg.refine_every == 0))
 
@@ -542,14 +572,17 @@ class Trainer:
                     and len(self.eval_cams) > 0):
                 d = self.data_batch
                 ei = ((self.step // tc.eval_opt_every) * d) % len(self.eval_cams)
-                if self.mesh is None:
-                    eval_opt_step(self.params, self.eval_optimizer, cfg, self.eval_cams[ei],
-                                  self._eval_imgs_dev[ei], self.step, self._bg_generator)
-                else:
+                if self.mesh is not None:
                     ei = (ei + self.mesh.coords["data"]) % len(self.eval_cams)
-                    sharding.sharded_eval_opt_step(
-                        self.mesh, self.params, self.eval_optimizer, cfg, self.eval_cams[ei],
-                        self._eval_imgs_dev[ei], self.step, self._bg_generator)
+                with self._step_scope("splat.eval_camera_step"):
+                    if self.mesh is None:
+                        eval_opt_step(self.params, self.eval_optimizer, cfg, self.eval_cams[ei],
+                                      self._eval_imgs_dev[ei], self.step, self._bg_generator)
+                    else:
+                        sharding.sharded_eval_opt_step(
+                            self.mesh, self.params, self.eval_optimizer, cfg,
+                            self.eval_cams[ei], self._eval_imgs_dev[ei], self.step,
+                            self._bg_generator)
 
             self.step += 1
 
@@ -559,7 +592,7 @@ class Trainer:
             reset_pause = n_train + cfg.refine_every
             if (self.step % cfg.refine_every == 0 and cfg.warmup_length <= self.step
                     and self.step - self._last_reset_step > reset_pause):
-                with self.global_view():
+                with span("splat.refine"), self.global_view():
                     event = {"step": self.step, **self._refine_gaussians()}
                     event["grew"] = self._maybe_grow()
                     event["adapted"] = self._maybe_adapt_tile_capacity()
@@ -578,10 +611,16 @@ class Trainer:
                         self._last_reset_step = self.step
                     event.update(capacity=self.params.gaussians.alive.shape[0],
                                  max_per_tile=cfg.max_per_tile,
-                                 max_total_entries=cfg.max_total_entries)
+                                 max_total_entries=cfg.max_total_entries,
+                                 **self._binning_event())
                     self.refine_events.append(event)
 
+            if it + 1 == steps:
+                self.timer.finish()
             if self.step % tc.log_every == 0 or self.step == steps:
+                # the record reads the loss, a wait for the device: the timer's
+                # window closes there too
+                self.timer.lap()
                 rec = {
                     "step": self.step,
                     "loss": float(loss),
@@ -593,6 +632,7 @@ class Trainer:
                     rec["tile_overflow_frac"] = round(self._tile_overflow_frac, 6)
                 if self._entry_stream_pressure is not None:
                     rec["entry_stream_pressure"] = round(self._entry_stream_pressure, 4)
+                rec.update(self._binning_rates)
                 self.history.append(rec)
                 if progress_cb:
                     progress_cb(rec)
@@ -705,6 +745,8 @@ class Trainer:
             "tile_overflow_frac": self._tile_overflow_frac,
             "entry_stream_pressure": self._entry_stream_pressure,
             "max_per_tile": cfg.max_per_tile, "max_total_entries": cfg.max_total_entries,
+            "binning_counts": self.binning_counters.read(),
+            "binning_rates": self._binning_rates,
         }
         np.savez(path / "state.npz", **arrays)
         (path / "meta.json").write_text(json.dumps(meta, indent=2))
@@ -799,6 +841,8 @@ class Trainer:
             self._overflow_streak = int(meta.get("overflow_streak", 0))
             self._tile_overflow_frac = meta.get("tile_overflow_frac")
             self._entry_stream_pressure = meta.get("entry_stream_pressure")
+            self.binning_counters.restore(meta.get("binning_counts", {}))
+            self._binning_rates = meta.get("binning_rates", {})
         else:
             # params-only checkpoint: the epoch order is drawn anew at the next
             # step, and the most recent opacity reset follows from the schedule

@@ -33,6 +33,7 @@ from ..device import resolve_device
 from ..ops import projection, rasterize, se3, sh, tiling
 from ..ops.reference import RenderOutput
 from ..ops.ssim import ssim as ssim_fn
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -329,9 +330,10 @@ def render_camera(
     signature of `rasterize.rasterize_fused`, composites each anchor group in
     its place (the Gaussian exchanges hook in here) and forces the fused
     route."""
-    motion = camera_motion(params, camera, config, is_eval_camera)
-    g = params.gaussians
-    opac = torch.sigmoid(g.opacities_logit) * g.alive.detach()
+    with span("splat.project"):
+        motion = camera_motion(params, camera, config, is_eval_camera)
+        g = params.gaussians
+        opac = torch.sigmoid(g.opacities_logit) * g.alive.detach()
     w, h = motion.camera.width, motion.camera.height
     row0 = 0
     raster_kw = dict(
@@ -347,8 +349,9 @@ def render_camera(
     lo, hi = samples if samples is not None else (0, n_s)
 
     def inputs(t_s):
-        return subframe_inputs(params, motion, config, sh_degree_active, t_s, means2d_probe,
-                               row0=row0)
+        with span("splat.project"):
+            return subframe_inputs(params, motion, config, sh_degree_active, t_s,
+                                   means2d_probe, row0=row0)
 
     def render_subframe(t_s):
         proj, colors = inputs(t_s)
@@ -378,20 +381,22 @@ def render_camera(
             ))
             counts.append(s_hi - s_lo)
         # the blur average is the group-size-weighted mean of the group means
-        rgb = sum(c * o.rgb for c, o in zip(counts, per_anchor)) / n_s
-        alpha = sum(c * o.alpha for c, o in zip(counts, per_anchor)) / n_s
-        T = sum(c * o.transmittance for c, o in zip(counts, per_anchor)) / n_s
+        with span("splat.composite"):
+            rgb = sum(c * o.rgb for c, o in zip(counts, per_anchor)) / n_s
+            alpha = sum(c * o.alpha for c, o in zip(counts, per_anchor)) / n_s
+            T = sum(c * o.transmittance for c, o in zip(counts, per_anchor)) / n_s
         depth = None if mid_anchor is None else per_anchor[mid_anchor].depth
         return RenderOutput(rgb=rgb, alpha=alpha, depth=depth, transmittance=T)
     if config.blur_mode != "exact":
         raise ValueError(f"unknown blur_mode {config.blur_mode!r}")
     outs = [render_subframe(eps[s]) for s in range(lo, hi)]
-    return RenderOutput(
-        rgb=torch.stack([o.rgb for o in outs]).sum(dim=0) / n_s,
-        alpha=torch.stack([o.alpha for o in outs]).sum(dim=0) / n_s,
-        depth=outs[n_s // 2 - lo].depth if lo <= n_s // 2 < hi else None,
-        transmittance=torch.stack([o.transmittance for o in outs]).sum(dim=0) / n_s,
-    )
+    with span("splat.composite"):
+        return RenderOutput(
+            rgb=torch.stack([o.rgb for o in outs]).sum(dim=0) / n_s,
+            alpha=torch.stack([o.alpha for o in outs]).sum(dim=0) / n_s,
+            depth=outs[n_s // 2 - lo].depth if lo <= n_s // 2 < hi else None,
+            transmittance=torch.stack([o.transmittance for o in outs]).sum(dim=0) / n_s,
+        )
 
 
 def sh_eval_switch(degree_active, max_degree: int, dirs: torch.Tensor,
@@ -426,25 +431,26 @@ def binning_counts(params: ModelParams, camera: Cameras, config: SplatfactoConfi
     mid-exposure pose, with the camera and velocity corrections, the motion
     pad and the conic cull of the render's binning: `counts >
     config.max_per_tile` is the overflow the next step's rasterizer drops."""
-    g = params.gaussians
-    motion = camera_motion(params, camera, config)
-    cam = motion.camera
-    R_cw = motion.R0.T
-    vel = motion.use_motion
-    proj = projection.project_gaussians(
-        g.means, torch.exp(g.scales_log), g.quats, R_cw, -torch.matmul(R_cw, motion.p0),
-        cam.fx[0], cam.fy[0], cam.cx[0], cam.cy[0], cam.width, cam.height,
-        lin_vel=motion.lin_vel if vel else None, ang_vel=motion.ang_vel if vel else None,
-    )
-    comp = (torch.ones_like(proj.compensations) if config.rasterize_mode == "classic"
-            else proj.compensations)
-    op_eff = torch.sigmoid(g.opacities_logit) * g.alive * comp * proj.valid.to(comp.dtype)
-    t_max = torch.amax(torch.abs(motion.eps)) + 0.5 * torch.abs(motion.rs_time)
-    return tiling.tile_population(
-        proj.means2d, proj.extents, proj.depths, proj.valid, cam.width, cam.height,
-        config.tile_size, config.max_tiles_per_gaussian,
-        radius_pad=torch.abs(proj.pix_vels) * t_max, conics=proj.conics, opacities=op_eff,
-    )
+    with span("splat.bin"):
+        g = params.gaussians
+        motion = camera_motion(params, camera, config)
+        cam = motion.camera
+        R_cw = motion.R0.T
+        vel = motion.use_motion
+        proj = projection.project_gaussians(
+            g.means, torch.exp(g.scales_log), g.quats, R_cw, -torch.matmul(R_cw, motion.p0),
+            cam.fx[0], cam.fy[0], cam.cx[0], cam.cy[0], cam.width, cam.height,
+            lin_vel=motion.lin_vel if vel else None, ang_vel=motion.ang_vel if vel else None,
+        )
+        comp = (torch.ones_like(proj.compensations) if config.rasterize_mode == "classic"
+                else proj.compensations)
+        op_eff = torch.sigmoid(g.opacities_logit) * g.alive * comp * proj.valid.to(comp.dtype)
+        t_max = torch.amax(torch.abs(motion.eps)) + 0.5 * torch.abs(motion.rs_time)
+        return tiling.tile_population(
+            proj.means2d, proj.extents, proj.depths, proj.valid, cam.width, cam.height,
+            config.tile_size, config.max_tiles_per_gaussian,
+            radius_pad=torch.abs(proj.pix_vels) * t_max, conics=proj.conics, opacities=op_eff,
+        )
 
 
 def scale_regularizer(g: GaussianParams, config: SplatfactoConfig,

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ...utils.profiling import span
 from .. import tiling
 from ..projection import ProjectedGaussians
 from .rasterize_kernels import NPARAM, PARAM_STRIDE, rasterize_bwd, rasterize_fwd
@@ -79,11 +80,13 @@ class _GatherTable(torch.autograd.Function):
         (entry_slots,) = ctx.saved_tensors
         n = ctx.n_rows - 1                                      # table row n = pad
         width = g.shape[2]
-        d_slots = torch.cat([g.reshape(-1, width), g.new_zeros((1, width))])
-        d_table = g.new_zeros((ctx.n_rows, width))
-        if n > 0:
-            d_entries = _row_gather(d_slots, entry_slots.contiguous(), impl=ctx.impl)  # (N * M, 16)
-            d_table[:n] = d_entries.reshape(n, -1, width).sum(dim=1)
+        with span("splat.fetch"):
+            d_slots = torch.cat([g.reshape(-1, width), g.new_zeros((1, width))])
+            d_table = g.new_zeros((ctx.n_rows, width))
+            if n > 0:
+                # (N * M, 16): each candidate entry's slot gradient
+                d_entries = _row_gather(d_slots, entry_slots.contiguous(), impl=ctx.impl)
+                d_table[:n] = d_entries.reshape(n, -1, width).sum(dim=1)
         return d_table, None, None, None, None, None
 
 
@@ -147,8 +150,9 @@ def rasterize_tiles(
     `rasterize_tiles_pallas`). eps: (S,) sub-frame times (None: S = 1).
     Returns composite_output's tuple."""
     tw, _ = tiling.num_tiles(img_w, img_h, tile_size)
-    table = pack_param_table(proj, colors, opacities)
-    blocks = gather_table(table, lists, max_per_tile, impl=impl)
+    with span("splat.fetch"):
+        table = pack_param_table(proj, colors, opacities)
+        blocks = gather_table(table, lists, max_per_tile, impl=impl)
     out = rasterize_fwd(blocks, lists.counts, rs_time, tile_size, tw,
                         rs_full_height or img_h, row_offset=rs_row_offset, eps=eps,
                         impl=impl)

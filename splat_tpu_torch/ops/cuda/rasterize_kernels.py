@@ -27,6 +27,7 @@ import math
 import torch
 
 from ...device import scalar_tensor
+from ...utils.profiling import span
 from ..reference import ALPHA_THRESH, MAX_ALPHA, T_EPS
 from ..tiling import tile_wh
 from . import build
@@ -472,8 +473,9 @@ class _Composite(torch.autograd.Function):
     def backward(ctx, g_out):
         params, counts, scalars, out = ctx.saved_tensors
         tile_size, tiles_x, img_h, impl = ctx.cfg
-        d_params = rasterize_bwd(params, counts, scalars, out, g_out.contiguous(),
-                                 tile_size, tiles_x, img_h, impl=impl)
+        with span("splat.composite"):
+            d_params = rasterize_bwd(params, counts, scalars, out, g_out.contiguous(),
+                                     tile_size, tiles_x, img_h, impl=impl)
         return d_params, None, None, None, None, None, None
 
 

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..device import scalar_tensor
+from ..utils.profiling import span
 from . import tiling
 from .cuda import composite_output, pack_param_table, rasterize_tiles
 from .cuda.rasterize_kernels import rasterize_fwd
@@ -46,22 +47,23 @@ class _GatherDense(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        (idx,) = ctx.saved_tensors
-        n_rows, width = ctx.n_rows, g.shape[-1]
-        flat = idx.reshape(-1)
-        slots = torch.nonzero(flat < n_rows - 1).reshape(-1)    # filled slots, ascending
-        d_table = g.new_zeros((n_rows, width))
-        if slots.numel() == 0:
-            return d_table, None
-        order = torch.sort(flat[slots], stable=True).indices
-        rows, slots = flat[slots][order], slots[order]
-        first = torch.searchsorted(rows, torch.arange(n_rows, device=rows.device))
-        rank = torch.arange(rows.shape[0], device=rows.device) - first[rows]
-        slot_of = torch.full((n_rows, int(rank.max()) + 1), flat.shape[0],
-                             dtype=torch.long, device=rows.device)
-        slot_of[rows, rank] = slots
-        d_slots = torch.cat([g.reshape(-1, width), g.new_zeros((1, width))])
-        return d_slots[slot_of].sum(dim=1), None
+        with span("splat.fetch"):
+            (idx,) = ctx.saved_tensors
+            n_rows, width = ctx.n_rows, g.shape[-1]
+            flat = idx.reshape(-1)
+            slots = torch.nonzero(flat < n_rows - 1).reshape(-1)    # filled slots, ascending
+            d_table = g.new_zeros((n_rows, width))
+            if slots.numel() == 0:
+                return d_table, None
+            order = torch.sort(flat[slots], stable=True).indices
+            rows, slots = flat[slots][order], slots[order]
+            first = torch.searchsorted(rows, torch.arange(n_rows, device=rows.device))
+            rank = torch.arange(rows.shape[0], device=rows.device) - first[rows]
+            slot_of = torch.full((n_rows, int(rank.max()) + 1), flat.shape[0],
+                                 dtype=torch.long, device=rows.device)
+            slot_of[rows, rank] = slots
+            d_slots = torch.cat([g.reshape(-1, width), g.new_zeros((1, width))])
+            return d_slots[slot_of].sum(dim=1), None
 
 
 def gather_tile_params(lists: tiling.TileLists, table: torch.Tensor) -> torch.Tensor:
@@ -98,18 +100,19 @@ def bin_tiles(
     """Bin once for all sub-frames: the footprint is padded by the largest
     screen shift over the exposure and readout, |pix_vel| * (max|eps| + |rs|/2)
     per axis, and the conic cull uses the effective opacity."""
-    rs = scalar_tensor(rolling_shutter_time, opacities.device, opacities.dtype)
-    t_max = torch.amax(torch.abs(eps)) + 0.5 * torch.abs(rs)
-    radius_pad = torch.abs(proj.pix_vels) * t_max
-    op_eff = opacities * proj.compensations * proj.valid.to(opacities.dtype)
-    return tiling.build_tile_lists(
-        proj.means2d, proj.extents, proj.depths, proj.valid,
-        img_w, img_h, tile_size, max_per_tile, max_tiles_per_gaussian,
-        radius_pad=radius_pad, conics=proj.conics, opacities=op_eff,
-        materialize_indices=materialize_indices,
-        row0_px=rs_row_offset, full_img_h=rs_full_height,
-        max_total_entries=max_total_entries,
-    )
+    with span("splat.bin"):
+        rs = scalar_tensor(rolling_shutter_time, opacities.device, opacities.dtype)
+        t_max = torch.amax(torch.abs(eps)) + 0.5 * torch.abs(rs)
+        radius_pad = torch.abs(proj.pix_vels) * t_max
+        op_eff = opacities * proj.compensations * proj.valid.to(opacities.dtype)
+        return tiling.build_tile_lists(
+            proj.means2d, proj.extents, proj.depths, proj.valid,
+            img_w, img_h, tile_size, max_per_tile, max_tiles_per_gaussian,
+            radius_pad=radius_pad, conics=proj.conics, opacities=op_eff,
+            materialize_indices=materialize_indices,
+            row0_px=rs_row_offset, full_img_h=rs_full_height,
+            max_total_entries=max_total_entries,
+        )
 
 
 def _composite(proj, colors, opacities, img_w, img_h, eps, rs, tile_size,
@@ -124,7 +127,8 @@ def _composite(proj, colors, opacities, img_w, img_h, eps, rs, tile_size,
     )
     if impl == "torch":
         tw, _ = tiling.num_tiles(img_w, img_h, tile_size)
-        blocks = gather_tile_params(lists, pack_param_table(proj, colors, opacities))
+        with span("splat.fetch"):
+            blocks = gather_tile_params(lists, pack_param_table(proj, colors, opacities))
         out = rasterize_fwd(blocks, lists.counts, rs, tile_size, tw,
                             rs_full_height or img_h, row_offset=rs_row_offset,
                             eps=eps, impl="torch")
@@ -154,19 +158,20 @@ def rasterize(
 ) -> RenderOutput:
     """Rasterize one (sub-)frame. rs_full_height / rs_row_offset: a row strip
     of a taller image (scanline times over the full height)."""
-    eps = torch.zeros(1, dtype=colors.dtype, device=colors.device)
-    rgb_t, dep_t, T_t = _composite(
-        proj, colors, opacities, img_w, img_h, eps, rolling_shutter_time,
-        tile_size, max_per_tile, max_tiles_per_gaussian, impl, rs_full_height,
-        rs_row_offset, max_total_entries,
-    )
-    rgb = assemble_image(rgb_t[:, 0], img_w, img_h, tile_size)
-    depth_acc = assemble_image(dep_t[:, 0], img_w, img_h, tile_size)
-    T = assemble_image(T_t[:, 0], img_w, img_h, tile_size)
-    alpha = 1.0 - T
-    rgb = rgb + T[..., None] * background
-    depth = depth_acc / torch.clamp(alpha, min=1e-10)
-    return RenderOutput(rgb=rgb, alpha=alpha, depth=depth, transmittance=T)
+    with span("splat.composite"):
+        eps = torch.zeros(1, dtype=colors.dtype, device=colors.device)
+        rgb_t, dep_t, T_t = _composite(
+            proj, colors, opacities, img_w, img_h, eps, rolling_shutter_time,
+            tile_size, max_per_tile, max_tiles_per_gaussian, impl, rs_full_height,
+            rs_row_offset, max_total_entries,
+        )
+        rgb = assemble_image(rgb_t[:, 0], img_w, img_h, tile_size)
+        depth_acc = assemble_image(dep_t[:, 0], img_w, img_h, tile_size)
+        T = assemble_image(T_t[:, 0], img_w, img_h, tile_size)
+        alpha = 1.0 - T
+        rgb = rgb + T[..., None] * background
+        depth = depth_acc / torch.clamp(alpha, min=1e-10)
+        return RenderOutput(rgb=rgb, alpha=alpha, depth=depth, transmittance=T)
 
 
 def rasterize_fused(
@@ -197,33 +202,34 @@ def rasterize_fused(
     mid_index, default S // 2), reduced in tile space."""
     if reduce not in (None, "mean"):
         raise ValueError(f"unknown reduce: {reduce}")
-    if reduce == "mean":
-        bg = torch.as_tensor(background, dtype=colors.dtype, device=colors.device).expand(3)
-        rgb_t, T_t, dep_t = _composite(
+    with span("splat.composite"):
+        if reduce == "mean":
+            bg = torch.as_tensor(background, dtype=colors.dtype, device=colors.device).expand(3)
+            rgb_t, T_t, dep_t = _composite(
+                proj, colors, opacities, img_w, img_h, eps, rolling_shutter_time,
+                tile_size, max_per_tile, max_tiles_per_gaussian, impl, rs_full_height,
+                rs_row_offset, max_total_entries,
+                reduce_mean=True, mid_index=mid_index, background=bg,
+            )
+            T_mean = assemble_image(T_t, img_w, img_h, tile_size)
+            return RenderOutput(
+                rgb=assemble_image(rgb_t, img_w, img_h, tile_size),
+                alpha=1.0 - T_mean,
+                depth=assemble_image(dep_t, img_w, img_h, tile_size),
+                transmittance=T_mean,
+            )
+        rgb_t, dep_t, T_t = _composite(
             proj, colors, opacities, img_w, img_h, eps, rolling_shutter_time,
             tile_size, max_per_tile, max_tiles_per_gaussian, impl, rs_full_height,
             rs_row_offset, max_total_entries,
-            reduce_mean=True, mid_index=mid_index, background=bg,
         )
-        T_mean = assemble_image(T_t, img_w, img_h, tile_size)
-        return RenderOutput(
-            rgb=assemble_image(rgb_t, img_w, img_h, tile_size),
-            alpha=1.0 - T_mean,
-            depth=assemble_image(dep_t, img_w, img_h, tile_size),
-            transmittance=T_mean,
-        )
-    rgb_t, dep_t, T_t = _composite(
-        proj, colors, opacities, img_w, img_h, eps, rolling_shutter_time,
-        tile_size, max_per_tile, max_tiles_per_gaussian, impl, rs_full_height,
-        rs_row_offset, max_total_entries,
-    )
 
-    def assemble(x):
-        return torch.stack([assemble_image(x[:, s], img_w, img_h, tile_size)
-                            for s in range(x.shape[1])])
+        def assemble(x):
+            return torch.stack([assemble_image(x[:, s], img_w, img_h, tile_size)
+                                for s in range(x.shape[1])])
 
-    rgb, depth_acc, T = assemble(rgb_t), assemble(dep_t), assemble(T_t)
-    alpha = 1.0 - T
-    rgb = rgb + T[..., None] * background
-    depth = depth_acc / torch.clamp(alpha, min=1e-10)
-    return RenderOutput(rgb=rgb, alpha=alpha, depth=depth, transmittance=T)
+        rgb, depth_acc, T = assemble(rgb_t), assemble(dep_t), assemble(T_t)
+        alpha = 1.0 - T
+        rgb = rgb + T[..., None] * background
+        depth = depth_acc / torch.clamp(alpha, min=1e-10)
+        return RenderOutput(rgb=rgb, alpha=alpha, depth=depth, transmittance=T)

@@ -20,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from ..device import scalar_tensor
+from ..utils import profiling
 
 TILE_SENTINEL = 2**30
 _I32_MIN, _I32_MAX = -(2**31), 2**31 - 1
@@ -270,7 +271,9 @@ def build_tile_lists(
     conics/opacities (effective opacity, compensation folded in): when given,
     entries whose best pixel cannot reach the alpha floor are culled exactly
     before the sort. max_total_entries > 0 caps the sorted stream; real
-    entries past it are dropped and counted in entry_overflow."""
+    entries past it are dropped and counted in entry_overflow. Inside a
+    trainer's step the binning adds its candidate, culled-in and landed
+    entries to the active `profiling.BinningCounters`."""
     dev = means2d.device
     n = means2d.shape[0]
     tw, th = num_tiles(img_w, img_h, tile_size)
@@ -303,6 +306,9 @@ def build_tile_lists(
     starts, ends = edges[:-1], edges[1:]
     counts_full = ends - starts
     counts = torch.clamp(counts_full, max=max_per_tile)
+    counters = profiling.active_counters()
+    if counters is not None:
+        counters.add(n_entries, n_real, counts)
 
     if materialize_indices:
         j = torch.arange(max_per_tile, dtype=torch.int32, device=dev)[None, :]

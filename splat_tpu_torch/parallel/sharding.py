@@ -61,6 +61,7 @@ from ..ops.cuda import pack_param_table
 from ..ops.reference import RenderOutput
 from ..ops.ssim import ssim_map
 from ..ops.tiling import tile_wh
+from ..utils.profiling import span
 from .collectives import Axis, all_gather, all_reduce_sum, all_to_all, from_next, gather_, reduce_
 
 AXES = ("data", "gauss", "blur", "tile")
@@ -451,23 +452,24 @@ def sharded_loss(mesh: Mesh, params: sf.ModelParams, camera: Cameras, gt: torch.
         params, camera, config, sh_deg, bg, strip_h, row0, _samples(mesh, config),
         mesh.axes["gauss"], means2d_probe=probe, is_eval=is_eval)
     rgb_mean = all_reduce_sum(rgb_share, mesh.axes["blur"])
-    pred = sf.apply_black_level(sf.gamma_encode(rgb_mean, config), config)
-    gt_below = sf.apply_black_level(gt[row0:], config)
-    l1 = torch.abs(pred - gt_below[:strip_h]).sum() / (full_h * width * 3)
-    ssim_part = _exact_strip_ssim(pred, gt_below, row0, full_h, mesh.axes["tile"])
-    lam = config.ssim_lambda
-    core = (1 - lam) * l1 + lam * (1.0 / mesh.shape["tile"] - ssim_part)
-    # every gauss and blur rank of a strip computes it alike; the data axis averages
-    share = core / (mesh.shape["gauss"] * mesh.shape["blur"] * mesh.shape["data"])
-    if config.use_scale_regularization:
-        g = params.gaussians
-        n_alive = torch.clamp(reduce_(g.alive.detach().sum(), mesh.axes["gauss"]), min=1.0)
-        # once per shard; every rank builds the same graph (a zero weight elsewhere)
-        once = 1.0 if mesh.owner else 0.0
-        share = share + once * sf.scale_regularizer(g, config, n_alive)
-    pen = cam_opt.camera_opt_penalty(params.camera_opt, config.camera_optimizer,
-                                        device=pred.device)
-    share = share + (1.0 if mesh.rank == 0 else 0.0) * pen
+    with span("splat.loss"):
+        pred = sf.apply_black_level(sf.gamma_encode(rgb_mean, config), config)
+        gt_below = sf.apply_black_level(gt[row0:], config)
+        l1 = torch.abs(pred - gt_below[:strip_h]).sum() / (full_h * width * 3)
+        ssim_part = _exact_strip_ssim(pred, gt_below, row0, full_h, mesh.axes["tile"])
+        lam = config.ssim_lambda
+        core = (1 - lam) * l1 + lam * (1.0 / mesh.shape["tile"] - ssim_part)
+        # every gauss and blur rank of a strip computes it alike; the data axis averages
+        share = core / (mesh.shape["gauss"] * mesh.shape["blur"] * mesh.shape["data"])
+        if config.use_scale_regularization:
+            g = params.gaussians
+            n_alive = torch.clamp(reduce_(g.alive.detach().sum(), mesh.axes["gauss"]), min=1.0)
+            # once per shard; every rank builds the same graph (a zero weight elsewhere)
+            once = 1.0 if mesh.owner else 0.0
+            share = share + once * sf.scale_regularizer(g, config, n_alive)
+        pen = cam_opt.camera_opt_penalty(params.camera_opt, config.camera_optimizer,
+                                         device=pred.device)
+        share = share + (1.0 if mesh.rank == 0 else 0.0) * pen
     return share, info
 
 
@@ -504,7 +506,8 @@ def sharded_train_step(mesh: Mesh, params: sf.ModelParams, optimizer, strat_stat
     gradients summed over the ranks holding each leaf, Adam on this rank's
     leaves, the densification statistics on its shard. Returns (loss, aux,
     strat_state) with the loss summed over the ranks."""
-    optimizer.zero_grad()
+    with span("splat.optimizer"):
+        optimizer.zero_grad()
     probe = torch.zeros_like(params.gaussians.means[:, :2], requires_grad=True)
     share, info = sharded_loss(mesh, params, camera, gt, config, step, probe=probe,
                                generator=generator)
@@ -512,10 +515,11 @@ def sharded_train_step(mesh: Mesh, params: sf.ModelParams, optimizer, strat_stat
     gauss_leaves = {id(t) for t in params.gaussians}
     reduce_gradients(mesh, [p for p in optimizer.params if id(p) in gauss_leaves] + [probe],
                      [p for p in optimizer.params if id(p) not in gauss_leaves])
-    optimizer.step()
-    visible = torch.linalg.norm(probe.grad, dim=-1) > 0
-    strat_state = st.accumulate_grads(strat_state, probe.grad, visible, camera.width,
-                                      camera.height)
+    with span("splat.optimizer"):
+        optimizer.step()
+        visible = torch.linalg.norm(probe.grad, dim=-1) > 0
+        strat_state = st.accumulate_grads(strat_state, probe.grad, visible, camera.width,
+                                          camera.height)
     n_visible = reduce_(visible.sum(), mesh.axes["gauss"])
     return world_sum(mesh, share), {"n_visible": n_visible, **info}, strat_state
 
@@ -539,8 +543,9 @@ def sharded_eval_opt_step(mesh: Mesh, params: sf.ModelParams, eval_optimizer,
     for p, grad in zip(eval_optimizer.leaves, grads):
         p.grad = grad
     reduce_gradients(mesh, [], eval_optimizer.leaves)
-    eval_optimizer.adam.step()
-    eval_optimizer.adam.zero_grad(set_to_none=True)
+    with span("splat.optimizer"):
+        eval_optimizer.adam.step()
+        eval_optimizer.adam.zero_grad(set_to_none=True)
     return world_sum(mesh, share)
 
 
