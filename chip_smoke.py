@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Phases, each of which raises (and the script exits nonzero) on failure:
-  1. build the eight CUDA kernels with nvcc (in parallel) and print the
-     environment: card, power limit, torch / CUDA versions, TF32 flags;
+  1. build the nine CUDA kernel libraries with nvcc (in parallel) and print
+     the environment: card, power limit, torch / CUDA versions, TF32 flags;
   2. hold each kernel against its plain PyTorch version on the card at the
      main path's shapes (the binning of the first camera): seg_copy bitwise,
      the forward compositor at atol 1e-4 on rgb and T and 1e-3 on depth_acc
@@ -25,7 +25,13 @@ Phases, each of which raises (and the script exits nonzero) on failure:
      shapes (`scripts_dev/probe_*_torch.py`); bwd_stacked at the backward
      compositor's inputs and bounds, against its own plain version (the
      stacked formulation) and against the rasterize_bwd kernel, bitwise equal
-     over two launches and over tps;
+     over two launches and over tps; the projection and SH pair
+     (`scripts_dev/probe_project_sh_torch.py`) against the plain route at
+     2^20 slots, degree 3, velocities: every output within 5e-5 and every
+     gradient (the camera's included) within 1e-4 of max|plain route|, the
+     radii / extents mismatches each within float32 rounding of an integer
+     before ceil, the backward bitwise equal over two launches and the
+     frozen Gaussians' backward a camera-only launch;
   3. the render path: 4 cameras at 1024x1024 from a 100k-Gaussian model (the
      bench scene, random SH from a seed) through `render_camera` with the
      default config (5 fused blur samples, rolling shutter, SH degree 3,
@@ -56,7 +62,8 @@ Phases, each of which raises (and the script exits nonzero) on failure:
      `probe_bwd_stacked_torch.py`): their timing loops are the path that
      launches row_scatter, seg_dma, chunk_cumsum and bwd_stacked;
   7. time each kernel, its plain version and a library yardstick on phase
-     2's inputs (the probes' inputs for the probe kernels), beside the least
+     2's inputs (the probes' inputs for the probe kernels; the projection
+     pair also beside the plain route it replaces), beside the least
      time the card could take (for the compositors the smaller of two counts:
      every live pixel of a tile, or only the (row, warp) groups where a pair
      composites; both printed, with the share of groups the cull keeps and
@@ -100,7 +107,8 @@ Phases, each of which raises (and the script exits nonzero) on failure:
      step); `cli.export --min-opacity 0.005` (the PLY bitwise the trainer's
      alive, thresholded leaves) launches none. The kernels' own launches on
      three paths are recorded as the path made them (`KernelCapture`) and
-     held against their plain versions at phase 2's tolerances: one more
+     held against their plain versions at phase 2's tolerances (the
+     projection pair among them, forward and backward): one more
      training step of the motion_blur run in this process (10 blur samples
      split into anchor groups at 512 px: each group size once, forward and
      backward), the first
@@ -393,9 +401,11 @@ class _Recorder:
 class KernelCapture:
     """Inside `with`: the inputs and the output of the first kernel launch of
     each path kernel for each shape key (the compositors by sample count and
-    tile, seg_copy by K, row_gather by padding), copied as the driven path
-    made them, from any host thread. `hold` then holds each against its
-    plain version at phase 2's tolerances. Holding makes no launch."""
+    tile, seg_copy by K, row_gather by padding, the projection pair by SH
+    rows, velocities and, backward, the gradients asked for), copied as the
+    driven path made them, from any host thread. `hold` then holds each
+    against its plain version at phase 2's tolerances. Holding makes no
+    launch."""
 
     def __init__(self, label: str):
         import threading
@@ -404,11 +414,15 @@ class KernelCapture:
     def _keep(self, key, args, kwargs, out):
         with self._lock:
             if key not in self.records:
-                copy = lambda t: t.detach().clone() if torch.is_tensor(t) else t  # noqa: E731
+                def copy(t):
+                    if isinstance(t, (tuple, list)):
+                        return type(t)(copy(x) for x in t)
+                    return t.detach().clone() if torch.is_tensor(t) else t
                 self.records[key] = ([copy(a) for a in args], dict(kwargs), copy(out))
 
     def __enter__(self):
         from splat_tpu_torch.ops import cuda as kcuda
+        from splat_tpu_torch.ops.cuda import project_sh as ps
         from splat_tpu_torch.ops.cuda import rasterize_kernels as rk
 
         def on_fwd(args, kw, out):         # _launch_fwd: the kernel, always
@@ -426,8 +440,16 @@ class KernelCapture:
             if rk._use_kernel(kw.get("impl", "auto"), args[0]):
                 self._keep(("row_gather", kw.get("pad_rows", 0)), args, kw, out)
 
+        def on_sh_fwd(args, kw, out):      # the kernel, always
+            self._keep(("project_sh_fwd", args[4].shape[1], args[9]), args, kw, out)
+
+        def on_sh_bwd(args, kw, out):
+            self._keep(("project_sh_bwd", args[4].shape[1], args[9], tuple(args[11])), args, kw,
+                       out)
+
         self._patched = [(rk, "_launch_fwd", on_fwd), (rk, "rasterize_bwd", on_bwd),
-                         (kcuda, "_seg_copy", on_seg), (kcuda, "_row_gather", on_gather)]
+                         (kcuda, "_seg_copy", on_seg), (kcuda, "_row_gather", on_gather),
+                         (ps, "project_sh_fwd", on_sh_fwd), (ps, "project_sh_bwd", on_sh_bwd)]
         self._saved = [(mod, name, getattr(mod, name)) for mod, name, _ in self._patched]
         for mod, name, record in self._patched:
             setattr(mod, name, _Recorder(getattr(mod, name), record))
@@ -446,7 +468,9 @@ class KernelCapture:
         """Every record against its plain version: seg_copy and row_gather
         bitwise; the forward compositor at atol 1e-4 on rgb and T and 1e-3
         on depth_acc, its cull missing no compositing group; the backward
-        within BWD_TOL of max|plain|. Returns max|err| by kernel."""
+        within BWD_TOL of max|plain|; the projection pair against its plain
+        closed form at scripts_dev/probe_project_sh_torch.py's TOL (as a share
+        of max|plain|). Returns max|err| by kernel."""
         from splat_tpu_torch.ops.cuda import rasterize_kernels as rk
         from splat_tpu_torch.ops.cuda.row_gather import row_gather_plain
         from splat_tpu_torch.ops.cuda.seg_copy import seg_copy_plain
@@ -454,7 +478,12 @@ class KernelCapture:
         errs, said = {}, []
         for key, (args, kw, got) in sorted(self.records.items(), key=str):
             name, what = key[0], f"{self.label}: {key[0]} {key[1:]}"
-            if name == "seg_copy":
+            if name in ("project_sh_fwd", "project_sh_bwd"):
+                sh_probe = load_probe("probe_project_sh_torch")
+                hold_fn = sh_probe.hold_fwd if name == "project_sh_fwd" else sh_probe.hold_bwd
+                err = hold_fn(args, got)
+                note = f"N {args[0].shape[0]}, {err:.3g} of max|plain|"
+            elif name == "seg_copy":
                 check(torch.equal(got, seg_copy_plain(*args[:3])),
                       f"{what} bitwise its plain version")
                 err, note = 0.0, f"{tuple(got.shape)} bitwise"
@@ -618,8 +647,8 @@ def render_tools_phase(root: Path, reset_counts, stacked_shares) -> dict:
     by_path, errs = {"matrix": matrix_launches}, {}
 
     def hold(capture, want_bwd: bool):
-        names = ("rasterize_fwd", "seg_copy", "row_gather")
-        for name in names + (("rasterize_bwd",) if want_bwd else ()):
+        names = ("rasterize_fwd", "seg_copy", "row_gather", "project_sh_fwd")
+        for name in names + (("rasterize_bwd", "project_sh_bwd") if want_bwd else ()):
             check(capture.kinds(name), f"{capture.label}: {name} launched and recorded")
         for name, err in capture.hold(stacked_shares).items():
             errs[name] = max(errs.get(name, 0.0), err)
@@ -1234,6 +1263,7 @@ def main() -> int:
     from splat_tpu_torch.ops.cuda import rasterize_kernels as rk
     from splat_tpu_torch.ops.cuda.bwd_stacked import bwd_stacked, bwd_stacked_plain, stacked_layout
     from splat_tpu_torch.ops.cuda.chunk_cumsum import chunk_cumsum
+    from splat_tpu_torch.ops.cuda.project_sh import project_sh_bwd, project_sh_fwd
     from splat_tpu_torch.ops.cuda.row_gather import row_gather, row_gather_plain
     from splat_tpu_torch.ops.cuda.row_scatter import row_scatter, scatter_plan
     from splat_tpu_torch.ops.cuda.seg_copy import seg_copy, seg_copy_plain
@@ -1242,10 +1272,12 @@ def main() -> int:
 
     probes = {name: load_probe(name) for name in
               ("probe_kernel_gather_torch", "probe_seg_dma_torch", "probe_cumsum_torch",
-               "probe_bwd_stacked_torch")}
+               "probe_bwd_stacked_torch", "probe_project_sh_torch")}
     cull_probe = load_probe("probe_cull_torch")
     ptxas_report = load_probe("time_compositors_torch").ptxas_report
-    path_kernels = (seg_copy, rk.rasterize_fwd, rk.rasterize_bwd, row_gather)
+    path_kernels = (seg_copy, rk.rasterize_fwd, rk.rasterize_bwd, row_gather, project_sh_fwd,
+                    project_sh_bwd)
+    sh_probe = probes.pop("probe_project_sh_torch")
     probe_kernels = (row_scatter, scatter_plan, seg_dma, chunk_cumsum, bwd_stacked)
     stacked_probe = probes["probe_bwd_stacked_torch"]
 
@@ -1485,7 +1517,7 @@ def main() -> int:
     check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmul off")
     t0 = time.perf_counter()
     report = build.build(["seg_copy", "rasterize_fwd", "rasterize_bwd", "row_gather",
-                          "row_scatter", "seg_dma", "chunk_cumsum", "bwd_stacked"])
+                          "row_scatter", "seg_dma", "chunk_cumsum", "bwd_stacked", "project_sh"])
     print(f"build: {time.perf_counter() - t0:.2f} s wall for {sorted(report) or 'cached'}")
     for name, r in report.items():
         info = [ln.strip() for ln in r["log"].splitlines() if "registers" in ln or "spill" in ln]
@@ -1501,7 +1533,11 @@ def main() -> int:
         if "bwd_stacked" in report else "cached",
         "row_scatter": {**ptxas_report(report["row_scatter"]["log"], "row_scatter_vec4"),
                         **ptxas_report(report["row_scatter"]["log"], "plan_")}
-        if "row_scatter" in report else "cached"}
+        if "row_scatter" in report else "cached",
+        "project_sh_fwd<3>": ptxas_report(report["project_sh"]["log"], "fwd_kernelILi3E")
+        if "project_sh" in report else "cached",
+        "project_sh_bwd<3>": ptxas_report(report["project_sh"]["log"], "bwd_kernelILi3E")
+        if "project_sh" in report else "cached"}
     card = nvidia_smi("name,power.limit")
     max_clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     props = torch.cuda.get_device_properties(0)
@@ -1662,6 +1698,20 @@ def main() -> int:
         probes["probe_seg_dma_torch"].check(probe_inputs["probe_seg_dma_torch"])
         cumsum_errs = probes["probe_cumsum_torch"].check(probe_inputs["probe_cumsum_torch"])
         errs["chunk_cumsum"] = max(cumsum_errs.values())
+        # the projection and SH pair against the plain route at 2^20 slots
+        sh_inputs = sh_probe.make_inputs(dev)
+    sh_res = sh_probe.check(sh_inputs)
+    fwd_keys = sh_probe.FWD_NAMES + ("colors",)
+    errs["project_sh_fwd"] = max(sh_res["errs"][k] for k in fwd_keys)
+    errs["project_sh_bwd"] = max(v for k, v in sh_res["errs"].items() if k.startswith("d_"))
+    print(f"project_sh vs the plain route at {sh_probe.N} slots (degree {sh_probe.DEGREE}, "
+          f"velocities): forward {errs['project_sh_fwd']:.3g} of max|plain| at most, gradients "
+          f"{errs['project_sh_bwd']:.3g} ({sh_res['errs']}); mismatches {sh_res['mismatches']}, "
+          f"each within float32 rounding of an integer before ceil; the backward bitwise equal "
+          f"over two launches")
+    check(sh_res["mismatches"]["frozen_bwd_launches"] == 1,
+          "the frozen Gaussians' backward launched once, for the camera alone")
+    with torch.no_grad():
         print(f"row_gather bitwise (parameter table {tuple(sp.shape)}, slot gradients "
               f"{entry_slots.numel()} rows, probe shape); seg_dma bitwise in "
               f"{len(dma_variants)} variants (main path and probe streams); row_scatter "
@@ -1678,13 +1728,15 @@ def main() -> int:
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t0) * 1e3 / N_CAMERAS
         by_path = {"render": kcuda.path_launches()}
-        render_launches = {k: v for k, v in by_path["render"].items() if k != "rasterize_bwd"}
+        render_launches = {k: v for k, v in by_path["render"].items()
+                           if k not in ("rasterize_bwd", "project_sh_bwd")}
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         print(f"render path: {N_CAMERAS} cameras, launches {render_launches}, "
               f"first pass {first_ms:.1f} ms/camera, peak memory {peak_gib:.2f} GiB")
         for k, n in render_launches.items():
             check(n > 0, f"{k} launched on the render path")
-        check(rk.rasterize_bwd.launches == 0, "no backward launched by a render")
+        check(rk.rasterize_bwd.launches == project_sh_bwd.launches == 0,
+              "no backward launched by a render")
         for i, out in enumerate(images):
             check(out.rgb.shape == (RES, RES, 3), f"camera {i} image shape")
             check(bool(torch.isfinite(out.rgb).all() and torch.isfinite(out.depth).all()),
@@ -2118,6 +2170,15 @@ def main() -> int:
         for kname, rep_ in probe_ptxas.items():
             print(f"ptxas, {kname}: {rep_}")
         del bwd_args, fwd_args, blocks, sp, table, d_slots
+    sh_times = sh_probe.bench(sh_inputs, KERNEL_RUNS, KERNEL_REPS)
+    del sh_inputs
+    print(f"project_sh at {sh_probe.N} slots, degree {sh_probe.DEGREE}, velocities: forward "
+          f"{sh_times['fwd_ms']:.4f} ms (bound {sh_times['fwd_bound_ms']:.4f} ms by bytes; plain "
+          f"closed form {sh_times['fwd_plain_ms']:.4f}; the plain route "
+          f"{sh_times['route_fwd_ms']:.4f}), backward {sh_times['bwd_ms']:.4f} ms (bound "
+          f"{sh_times['bwd_bound_ms']:.4f}; plain closed form {sh_times['bwd_plain_ms']:.4f}); "
+          f"forward and backward through autograd: kernels {sh_times['kernel_fwd_bwd_ms']:.4f} "
+          f"ms, the plain route {sh_times['route_fwd_bwd_ms']:.4f} ms")
 
     fit = fit_phase()
     tools = render_tools_phase(Path(__file__).resolve().parent, reset_counts,
@@ -2198,6 +2259,22 @@ def main() -> int:
          "library_ms": None, "coefficient_passes": coefficient_passes,
          "rows_a_thread": rows_a_thread, "kept_groups": stacked_work["kept_groups"],
          "hit_groups": stacked_work["hit_groups"]},
+        # no Pallas kernel: the JAX package leaves projection and SH to XLA;
+        # at 2^20 slots, degree 3, velocities; plain_ms the closed form's,
+        # route_ms the plain route's (what the kernels replace)
+        {"name": "project_sh_fwd", "route": "cuda",
+         "source": "splat_tpu_torch/ops/cuda/csrc/project_sh.cu", "replaces": None,
+         "launches": launches["project_sh_fwd"], "max_abs_err": errs["project_sh_fwd"],
+         "ms": sh_times["fwd_ms"], "plain_ms": sh_times["fwd_plain_ms"],
+         "route_ms": sh_times["route_fwd_ms"], "bound_ms": sh_times["fwd_bound_ms"],
+         "bound_by": "bytes", "library_ms": None},
+        {"name": "project_sh_bwd", "route": "cuda",
+         "source": "splat_tpu_torch/ops/cuda/csrc/project_sh.cu", "replaces": None,
+         "launches": launches["project_sh_bwd"], "max_abs_err": errs["project_sh_bwd"],
+         "ms": sh_times["bwd_ms"], "plain_ms": sh_times["bwd_plain_ms"],
+         "route_fwd_bwd_ms": sh_times["route_fwd_bwd_ms"],
+         "kernel_fwd_bwd_ms": sh_times["kernel_fwd_bwd_ms"], "bound_ms": sh_times["bwd_bound_ms"],
+         "bound_by": "bytes", "library_ms": None},
     ]
     by_path["fit"] = fit["launches"]
     by_path.update(tools["launches"])

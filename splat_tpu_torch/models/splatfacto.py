@@ -31,6 +31,7 @@ from ..cameras import optimizers as cam_opt
 from ..cameras.cameras import Cameras
 from ..device import resolve_device
 from ..ops import projection, rasterize, se3, sh, tiling
+from ..ops.cuda.project_sh import project_sh
 from ..ops.reference import RenderOutput
 from ..ops.ssim import ssim as ssim_fn
 from ..utils.profiling import span
@@ -272,15 +273,36 @@ def subframe_inputs(params: ModelParams, motion: CameraMotion, config: Splatfact
     g = params.gaussians
     cam = motion.camera
     Rt, pt = se3.se3_advance_c2w(motion.R0, motion.p0, motion.lin_vel, motion.ang_vel, t_s)
+    vel = motion.use_motion
+    if config.impl == "cuda" and not g.means.is_cuda:
+        raise ValueError(f"impl='cuda' needs CUDA tensors, got {g.means.device}")
+    if config.impl != "torch" and g.means.is_cuda:
+        # the kernel pair; "auto" on CPU tensors keeps the plain route below
+        proj, colors = project_sh(
+            g.means, g.scales_log, g.quats, g.features_dc, g.features_rest, Rt, pt,
+            cam.fx[0], cam.fy[0], cam.cx[0], cam.cy[0], cam.width, cam.height,
+            sh_degree_active, lin_vel=motion.lin_vel if vel else None,
+            ang_vel=motion.ang_vel if vel else None)
+        return _shift_means(proj, config, means2d_probe, row0), colors
     R_cw = Rt.T
     t_cw = -torch.matmul(R_cw, pt)
-    vel = motion.use_motion
     proj = projection.project_gaussians(
         g.means, torch.exp(g.scales_log), g.quats, R_cw, t_cw,
         cam.fx[0], cam.fy[0], cam.cx[0], cam.cy[0], cam.width, cam.height,
         lin_vel=motion.lin_vel if vel else None,
         ang_vel=motion.ang_vel if vel else None,
     )
+    dirs = g.means - pt
+    dirs = dirs / torch.clamp(torch.linalg.norm(dirs, dim=-1, keepdim=True), min=1e-9)
+    coeffs = torch.cat([g.features_dc[:, None, :], g.features_rest], dim=1)
+    return (_shift_means(proj, config, means2d_probe, row0),
+            sh_eval_switch(sh_degree_active, config.sh_degree, dirs, coeffs))
+
+
+def _shift_means(proj: projection.ProjectedGaussians, config: SplatfactoConfig,
+                 means2d_probe: torch.Tensor | None, row0: int) -> projection.ProjectedGaussians:
+    """The row strip's shift, the probe and classic mode's compensations,
+    applied to either route's projection."""
     if row0:
         shift = torch.tensor([0.0, float(row0)], dtype=proj.means2d.dtype,
                              device=proj.means2d.device)
@@ -289,10 +311,7 @@ def subframe_inputs(params: ModelParams, motion: CameraMotion, config: Splatfact
         proj = proj._replace(means2d=proj.means2d + means2d_probe)
     if config.rasterize_mode == "classic":
         proj = proj._replace(compensations=torch.ones_like(proj.compensations))
-    dirs = g.means - pt
-    dirs = dirs / torch.clamp(torch.linalg.norm(dirs, dim=-1, keepdim=True), min=1e-9)
-    coeffs = torch.cat([g.features_dc[:, None, :], g.features_rest], dim=1)
-    return proj, sh_eval_switch(sh_degree_active, config.sh_degree, dirs, coeffs)
+    return proj
 
 
 def anchor_groups(n_s: int, n_a: int) -> list[tuple[int, int]]:

@@ -309,6 +309,49 @@ def test_cuda_path_gradients_match_torch_route(cuda_device):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-3 * b.abs().max().item())
 
 
+def _load_script(name):
+    spec = importlib.util.spec_from_file_location(
+        name, Path(__file__).resolve().parents[1] / "scripts_dev" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("degree,active,vel,frozen",
+                         [(0, 0, True, False), (1, 0, False, False), (2, 1, True, False),
+                          (3, 2, False, False), (3, 3, True, False), (3, 1, True, True)])
+def test_project_sh_matches_plain_on_card(cuda_device, degree, active, vel, frozen):
+    """The projection and SH pair against its plain closed form on the same
+    inputs (scripts_dev/probe_project_sh_torch.py's hold, at its TOL), for
+    each highest SH degree, with and without velocities, a partial last
+    block, a tensor active degree and frozen Gaussians; the backward bitwise
+    equal over two launches, and only the gradients asked for written."""
+    from splat_tpu_torch.ops.cuda import project_sh as ps
+
+    probe = _load_script("probe_project_sh_torch")
+    n = 3 * ps.BLOCK * 8 + 77
+    inp = probe.make_inputs(cuda_device, n=n, seed=degree)
+    rest = inp["features_rest"][:, :(degree + 1) ** 2 - 1].contiguous()
+    cam = probe._camera(inp)
+    deg = torch.tensor(active, device=cuda_device) if degree == 2 else active
+    args = (inp["means"], inp["scales_log"], inp["quats"], inp["features_dc"], rest, cam, deg,
+            probe.W, probe.H, vel)
+    out = ps.project_sh_fwd(*args)
+    probe.hold_fwd(args, out)
+    if not vel:
+        assert not out[5].any(), "no pixel velocities without velocities"
+    grads = tuple(inp["cot"][k] for k in (*probe.FWD_NAMES, "colors"))
+    needs = (False,) * 5 + (True,) if frozen else (True,) * 6
+    before = ps.project_sh_bwd.launches
+    got = ps.project_sh_bwd(*args, grads, needs)
+    again = ps.project_sh_bwd(*args, grads, needs)
+    assert ps.project_sh_bwd.launches == before + 2
+    assert [g is None for g in got] == [not k for k in needs]
+    assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+    probe.hold_bwd(args + (grads, needs), got)
+
+
 @pytest.mark.cuda
 def test_train_step_on_card(cuda_device):
     params, cams = _model(cuda_device)
