@@ -908,7 +908,7 @@ def mesh_phase(params, cams, cfg, work: Path, scene_dir: Path, reset_counts, sta
         proj, colors = sf.subframe_inputs(params, motion, cfg, sh, t_a)
         table = kcuda.pack_param_table(proj, colors, opac)[:-1]
         rows = torch.cat([table, proj.extents], dim=1)
-        slab = sharding.slab_ids(table[:, 9], table[:, 8] > 0, MESH_PARTS, one)
+        slab, _ = sharding.slab_ids(table[:, 9], table[:, 8] > 0, MESH_PARTS, one)
         # one virtual rank holds the whole cloud, so its k-th send bucket is
         # all that slab k's rank receives in the exchange
         buckets, overflow = sharding.slab_buckets(rows, slab, MESH_PARTS, cfg.slab_slack)

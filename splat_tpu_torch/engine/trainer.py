@@ -41,13 +41,18 @@ With a `mesh` (`parallel/sharding.py`, one process per rank) the step goes
 through `sharded_train_step` and the eval-camera step through
 `sharded_eval_opt_step`; each rank of the data axis takes its own camera of
 a batch that every rank draws alike from the same generator (the cursor
-advances per camera), and the eval renders go through `sharded_render`.
-Refine, opacity reset, capacity growth, the tile-capacity probe and the
-checkpoints run on the global view (`global_view`): the Gaussian shards,
-their Adam moments and the strategy accumulators gathered, the same code run
-on every rank with the same split noise, then sharded again. A checkpoint
-holds the global state (rank 0 writes it, every rank reads it), so mesh and
-single-device runs load each other's.
+advances per camera), and the eval renders go through `sharded_render`. On
+a gauss-sharded mesh the refine block works on each rank's shard: cull,
+densify and the opacity reset elementwise, the new Gaussians placed over the
+shards by `sharding.refine_shard` (the gathered refine's state, bitwise),
+the growth check on the alive count summed over the shards, the tile probe's
+per-tile counts summed over them. A growth itself and the checkpoints run on
+the global view (`global_view`): the Gaussian shards, their Adam moments and
+the strategy accumulators gathered, the same code run on every rank, then
+sharded again. A checkpoint holds the global state (rank 0 writes it, every
+rank reads it), so mesh and single-device runs load each other's. On a slab
+mesh the refine's event also carries the slabs' counts since the last one
+(`utils/profiling.SlabCounters`).
 """
 from __future__ import annotations
 
@@ -356,6 +361,7 @@ class Trainer:
         self.refine_events: list[dict] = []
         self.timer = StepTimer(device=dev)
         self.binning_counters = profiling.BinningCounters()
+        self.slab_counters = profiling.SlabCounters()
         self._binning_rates: dict[str, float] = {}
 
     def _localize(self, cams: Cameras) -> Cameras:
@@ -365,9 +371,14 @@ class Trainer:
 
     # ------------------------------------------- adaptive tile capacity
     def _probe_counts(self, cam: Cameras) -> np.ndarray:
-        """The unclamped per-tile populations of `cam`, on the host."""
+        """The unclamped per-tile populations of `cam`, on the host (on a
+        gauss-sharded mesh summed over the shards: counts over a partition
+        of the Gaussians add)."""
         with torch.no_grad():
-            return sf.binning_counts(self.params, cam, self.model_config).cpu().numpy()
+            counts = sf.binning_counts(self.params, cam, self.model_config)
+            if self._gauss_sharded():
+                counts = sharding.reduce_(counts, self.mesh.axes["gauss"])
+            return counts.cpu().numpy()
 
     def _maybe_adapt_tile_capacity(self) -> bool:
         """Grow max_per_tile (doubling) when the probe shows the binning
@@ -447,19 +458,21 @@ class Trainer:
         """Double the capacity when the alive share passes grow_threshold.
         Every per-Gaussian leaf is replaced by a padded copy; Adam's moments
         and the schedule counts move with it, and the strategy state is
-        padded (its generator is kept)."""
-        g = self.params.gaussians
-        cap = g.alive.shape[0]
+        padded (its generator is kept). On a gauss-sharded mesh the check
+        reads the alive count summed over the shards, and a growth runs on
+        the global view."""
+        cap = self._capacity()
         tc = self.trainer_config
-        frac = float(g.alive.sum()) / cap
-        if frac <= tc.grow_threshold or cap >= tc.max_capacity:
+        if self._n_alive() / cap <= tc.grow_threshold or cap >= tc.max_capacity:
             return False
         new_cap = min(cap * 2, tc.max_capacity)
-        grown = st.grow_capacity(sf.GaussianParams(*(t.detach() for t in g)), new_cap)
-        self.optimizer.grow({getattr(g, f): getattr(grown, f)
-                             for f in sf.GaussianParams._fields if f != "alive"})
-        self.params = self.params._replace(gaussians=grown)
-        self.strat_state = st.grow_strategy_state(self.strat_state, new_cap)
+        with self.global_view():
+            g = self.params.gaussians
+            grown = st.grow_capacity(sf.GaussianParams(*(t.detach() for t in g)), new_cap)
+            self.optimizer.grow({getattr(g, f): getattr(grown, f)
+                                 for f in sf.GaussianParams._fields if f != "alive"})
+            self.params = self.params._replace(gaussians=grown)
+            self.strat_state = st.grow_strategy_state(self.strat_state, new_cap)
         return True
 
     def _next_camera_index(self, n_train: int) -> int:
@@ -496,6 +509,14 @@ class Trainer:
             self.params, self.strat_state = sharding.shard_train_state(
                 self.mesh, self.params, self.optimizer, self.strat_state)
 
+    def _gauss_sharded(self) -> bool:
+        return self.mesh is not None and self.mesh.shape["gauss"] > 1
+
+    def _capacity(self) -> int:
+        """The whole capacity axis's length (every shard's slots)."""
+        cap = self.params.gaussians.alive.shape[0]
+        return cap * self.mesh.shape["gauss"] if self.mesh is not None else cap
+
     def _n_alive(self) -> int:
         n = self.params.gaussians.alive.sum()
         if self.mesh is not None:
@@ -509,10 +530,17 @@ class Trainer:
                 torch.randn(shape, generator=gen, device=self.device))
 
     def _refine_gaussians(self) -> dict:
-        """Cull and densify in place; returns the refine's counts."""
+        """Cull and densify in place; returns the refine's counts. On a
+        gauss-sharded mesh each rank refines its shard (`refine_shard`)
+        with the whole capacity's split noise."""
         g = self.params.gaussians
-        new_g, self.strat_state, changed, info = st.refine(
-            g, self.strat_state, self.step, self.model_config, self._split_noise(g.means.shape))
+        noise = self._split_noise((self._capacity(), 3))
+        if self._gauss_sharded():
+            new_g, self.strat_state, changed, info = sharding.refine_shard(
+                self.mesh, g, self.strat_state, self.step, self.model_config, noise)
+        else:
+            new_g, self.strat_state, changed, info = st.refine(
+                g, self.strat_state, self.step, self.model_config, noise)
         self.optimizer.zero_slots(changed)
         with torch.no_grad():
             for old, new in zip(g, new_g):
@@ -521,20 +549,64 @@ class Trainer:
 
     @contextlib.contextmanager
     def _step_scope(self, name: str):
-        """One step of `run` under the span `name`, its binnings counted."""
-        with profiling.counting(self.binning_counters), span(name):
+        """One step of `run` under the span `name`, its binnings and slab
+        trades counted."""
+        with profiling.counting(self.binning_counters, self.slab_counters), span(name):
             yield
 
     def _binning_event(self) -> dict:
-        """Binning's counts since the last refine, for its event; the rates
-        the next history records carry."""
+        """Binning's counts since the last refine, for its event (on a
+        gauss-sharded mesh the entries summed over the shards, which bin
+        parts of one camera's binning; `binnings` counts that camera's); the
+        rates the next history records carry."""
         c = self.binning_counters.take()
+        if self._gauss_sharded():
+            keys = ("candidates", "real", "landed")
+            sums = sharding.reduce_(torch.tensor([c[k] for k in keys], dtype=torch.int64,
+                                                 device=self.device), self.mesh.axes["gauss"])
+            c.update(zip(keys, sums.tolist()))
         if c["binnings"] > 0:
             self._binning_rates = {
                 "binning_yield": round(c["real"] / max(c["candidates"], 1), 6),
                 "landed_per_binning": round(c["landed"] / c["binnings"], 1)}
         return {"binnings": c["binnings"], "binning_candidates": c["candidates"],
                 "binning_real": c["real"], "binning_landed": c["landed"]}
+
+    def _slab_event(self) -> dict:
+        """The depth slabs' counts since the last refine (rank 0's trades;
+        `slab_dropped` over the gauss axis), for a slab mesh's refine event."""
+        c = self.slab_counters.take()
+        return {"slab_trades": c["trades"], "slab_rows": c["rows"], "slab_sent": c["sent"],
+                "slab_dropped": c["dropped"],
+                "slab_fullest": c["fullest"] / c["trades"] if c["trades"] else 0.0,
+                "refine_rows_moved": c["moved"]}
+
+    def _refine_boundary(self, reset_pause: int) -> dict:
+        """The refine block at a refine boundary: cull and densify, the
+        growth check, the tile probe, the opacity reset on schedule.
+        Returns its event."""
+        tc = self.trainer_config
+        with span("splat.refine"), profiling.counting(None, self.slab_counters):
+            event = {"step": self.step, **self._refine_gaussians()}
+            event["grew"] = self._maybe_grow()
+            event["adapted"] = self._maybe_adapt_tile_capacity()
+            cfg = self.model_config
+            n_ref = self.step // cfg.refine_every
+            # never reset without a recovery window before the run ends:
+            # the model would be evaluated with every opacity clamped
+            can_recover = self.step + reset_pause <= tc.max_steps
+            event["reset"] = bool(cfg.reset_alpha_every > 0 and n_ref % cfg.reset_alpha_every == 0
+                                  and self.step < cfg.stop_split_at and can_recover)
+            if event["reset"]:
+                g = self.params.gaussians
+                with torch.no_grad():
+                    g.opacities_logit.copy_(st.reset_opacity(g, cfg).opacities_logit)
+                self._last_reset_step = self.step
+            event.update(capacity=self._capacity(), max_per_tile=cfg.max_per_tile,
+                         max_total_entries=cfg.max_total_entries, **self._binning_event())
+            if self._gauss_sharded() and cfg.gauss_shard_mode == "slab":
+                event.update(self._slab_event())
+        return event
 
     def run(self, max_steps: int | None = None, progress_cb: Callable | None = None):
         """Train for max_steps more steps (default trainer_config.max_steps);
@@ -592,28 +664,7 @@ class Trainer:
             reset_pause = n_train + cfg.refine_every
             if (self.step % cfg.refine_every == 0 and cfg.warmup_length <= self.step
                     and self.step - self._last_reset_step > reset_pause):
-                with span("splat.refine"), self.global_view():
-                    event = {"step": self.step, **self._refine_gaussians()}
-                    event["grew"] = self._maybe_grow()
-                    event["adapted"] = self._maybe_adapt_tile_capacity()
-                    cfg = self.model_config
-                    n_ref = self.step // cfg.refine_every
-                    # never reset without a recovery window before the run ends:
-                    # the model would be evaluated with every opacity clamped
-                    can_recover = self.step + reset_pause <= tc.max_steps
-                    event["reset"] = bool(cfg.reset_alpha_every > 0
-                                          and n_ref % cfg.reset_alpha_every == 0
-                                          and self.step < cfg.stop_split_at and can_recover)
-                    if event["reset"]:
-                        g = self.params.gaussians
-                        with torch.no_grad():
-                            g.opacities_logit.copy_(st.reset_opacity(g, cfg).opacities_logit)
-                        self._last_reset_step = self.step
-                    event.update(capacity=self.params.gaussians.alive.shape[0],
-                                 max_per_tile=cfg.max_per_tile,
-                                 max_total_entries=cfg.max_total_entries,
-                                 **self._binning_event())
-                    self.refine_events.append(event)
+                self.refine_events.append(self._refine_boundary(reset_pause))
 
             if it + 1 == steps:
                 self.timer.finish()

@@ -304,8 +304,8 @@ def _shift_means(proj: projection.ProjectedGaussians, config: SplatfactoConfig,
     """The row strip's shift, the probe and classic mode's compensations,
     applied to either route's projection."""
     if row0:
-        shift = torch.tensor([0.0, float(row0)], dtype=proj.means2d.dtype,
-                             device=proj.means2d.device)
+        shift = proj.means2d.new_zeros(2)
+        shift[1] = float(row0)          # a fill: no copy from the host, no wait
         proj = proj._replace(means2d=proj.means2d - shift)
     if means2d_probe is not None:
         proj = proj._replace(means2d=proj.means2d + means2d_probe)

@@ -67,8 +67,8 @@ def grow_strategy_state(state: StrategyState, new_capacity: int) -> StrategyStat
 
 
 def _rank_match_scatter(params: GaussianParams, new_vals: GaussianParams,
-                        want_new: torch.Tensor) -> tuple[GaussianParams, torch.Tensor]:
-    """Write new_vals[i], for each i with want_new[i], into a dead slot: the
+                        want: torch.Tensor) -> tuple[GaussianParams, torch.Tensor]:
+    """Write new_vals[i], for each i with want[i], into a dead slot: the
     r-th wanted candidate goes to the r-th dead slot, and candidates beyond
     the dead slots are dropped. Returns (params, filled slot mask).
 
@@ -79,8 +79,8 @@ def _rank_match_scatter(params: GaussianParams, new_vals: GaussianParams,
     alive_b = params.alive > 0.5
     dead_slots = torch.argsort(alive_b.to(torch.uint8), stable=True)    # dead first
     n_dead = capacity - alive_b.sum()
-    cand_rank = torch.cumsum(want_new.to(torch.int32), dim=0) - 1
-    ok = want_new & (cand_rank < n_dead)
+    cand_rank = torch.cumsum(want.to(torch.int32), dim=0) - 1
+    ok = want & (cand_rank < n_dead)
     target = dead_slots[torch.clamp(cand_rank, 0, capacity - 1).long()]
     safe_target = torch.where(ok, target, capacity)
 
@@ -95,13 +95,29 @@ def _rank_match_scatter(params: GaussianParams, new_vals: GaussianParams,
     return out, filled
 
 
+class Placement:
+    """Where a refine's new Gaussians go, on one device: `ranks` gives this
+    array's first candidate's rank among all candidates and the dead slots'
+    count (0 and this array's own), `scatter` writes the r-th candidate into
+    the r-th dead slot (`_rank_match_scatter`). `parallel.sharding` gives the
+    same over the shards of a mesh."""
+
+    def ranks(self, want: torch.Tensor, alive_b: torch.Tensor):
+        return 0, alive_b.shape[0] - alive_b.sum()
+
+    def scatter(self, params: GaussianParams, new_vals: GaussianParams, want: torch.Tensor):
+        return _rank_match_scatter(params, new_vals, want)
+
+
 @torch.no_grad()
 def refine(params: GaussianParams, state: StrategyState, step: int, config: SplatfactoConfig,
-           noise: tuple[torch.Tensor, torch.Tensor]):
+           noise: tuple[torch.Tensor, torch.Tensor], placement: Placement | None = None):
     """One cull + densify pass (port of `make_refine`'s `_refine`).
 
     noise: two (C, 3) standard-normal samples, the split offsets of the new
-    copy and of the original. Returns (params, state with the accumulators
+    copy and of the original. placement: where the new Gaussians go (one
+    device's `Placement` unless given; on a mesh the shard's, which makes
+    every step here elementwise on the shard). Returns (params, state with the accumulators
     zeroed, changed, info): `changed` marks the slots whose parameters are
     new (filled, split originals, culled), whose Adam moments the trainer
     zeroes; `info` holds n_culled, n_split, n_cloned and n_alive as 0-dim
@@ -129,8 +145,9 @@ def refine(params: GaussianParams, state: StrategyState, step: int, config: Spla
     # trim the candidates to the dead slots up front, so a split whose new
     # copy cannot be placed leaves its original as it is
     want = split_mask | clone_mask
-    n_dead = params.alive.shape[0] - alive_b.sum()
-    cand_rank = torch.cumsum(want.to(torch.int32), dim=0) - 1
+    placement = placement or Placement()
+    first, n_dead = placement.ranks(want, alive_b)
+    cand_rank = first + torch.cumsum(want.to(torch.int32), dim=0) - 1
     placeable = want & (cand_rank < n_dead)
     split_mask = split_mask & placeable
     clone_mask = clone_mask & placeable
@@ -149,7 +166,7 @@ def refine(params: GaussianParams, state: StrategyState, step: int, config: Spla
         means=torch.where(split_col, params.means + offset2, params.means),
         scales_log=shrunk, alive=alive_b.to(params.alive.dtype))
 
-    params, filled = _rank_match_scatter(params, new_vals, split_mask | clone_mask)
+    params, filled = placement.scatter(params, new_vals, split_mask | clone_mask)
     changed = filled | split_mask | cull
     info = {"n_culled": cull.sum(), "n_split": split_mask.sum(),
             "n_cloned": clone_mask.sum(), "n_alive": (params.alive > 0.5).sum()}

@@ -96,10 +96,12 @@ def bin_tiles(
     rs_row_offset=0,
     max_total_entries: int = 0,
     materialize_indices: bool = False,
+    tile_budget=None,
 ) -> tiling.TileLists:
     """Bin once for all sub-frames: the footprint is padded by the largest
     screen shift over the exposure and readout, |pix_vel| * (max|eps| + |rs|/2)
-    per axis, and the conic cull uses the effective opacity."""
+    per axis, and the conic cull uses the effective opacity. tile_budget:
+    each tile's cap from its uncapped count (`tiling.build_tile_lists`)."""
     with span("splat.bin"):
         rs = scalar_tensor(rolling_shutter_time, opacities.device, opacities.dtype)
         t_max = torch.amax(torch.abs(eps)) + 0.5 * torch.abs(rs)
@@ -111,19 +113,19 @@ def bin_tiles(
             radius_pad=radius_pad, conics=proj.conics, opacities=op_eff,
             materialize_indices=materialize_indices,
             row0_px=rs_row_offset, full_img_h=rs_full_height,
-            max_total_entries=max_total_entries,
+            max_total_entries=max_total_entries, tile_budget=tile_budget,
         )
 
 
 def _composite(proj, colors, opacities, img_w, img_h, eps, rs, tile_size,
                max_per_tile, max_tiles_per_gaussian, impl, rs_full_height,
-               rs_row_offset, max_total_entries, **reduce_kw):
+               rs_row_offset, max_total_entries, tile_budget=None, **reduce_kw):
     if impl not in IMPLS:
         raise ValueError(f"unknown rasterize impl: {impl}")
     lists = bin_tiles(
         proj, opacities, img_w, img_h, eps, rs, tile_size, max_per_tile,
         max_tiles_per_gaussian, rs_full_height, rs_row_offset, max_total_entries,
-        materialize_indices=(impl == "torch"),
+        materialize_indices=(impl == "torch"), tile_budget=tile_budget,
     )
     if impl == "torch":
         tw, _ = tiling.num_tiles(img_w, img_h, tile_size)
@@ -192,10 +194,12 @@ def rasterize_fused(
     reduce: str | None = None,
     mid_index: int | None = None,
     max_total_entries: int = 0,
+    tile_budget=None,
 ) -> RenderOutput:
     """Fused-exposure rasterization: all S sub-frames (eps, seconds) from one
     binning, each rendered by shifting means along their pixel velocity,
-    mu + pix_vel * (eps_s + t_rs * (py/H - 1/2)).
+    mu + pix_vel * (eps_s + t_rs * (py/H - 1/2)). tile_budget: each tile's
+    cap from its uncapped count (`tiling.build_tile_lists`).
 
     reduce=None: outputs with a leading (S,) axis. reduce="mean": the blur
     average of rgb / alpha / transmittance and the mid-exposure depth (index
@@ -208,7 +212,7 @@ def rasterize_fused(
             rgb_t, T_t, dep_t = _composite(
                 proj, colors, opacities, img_w, img_h, eps, rolling_shutter_time,
                 tile_size, max_per_tile, max_tiles_per_gaussian, impl, rs_full_height,
-                rs_row_offset, max_total_entries,
+                rs_row_offset, max_total_entries, tile_budget,
                 reduce_mean=True, mid_index=mid_index, background=bg,
             )
             T_mean = assemble_image(T_t, img_w, img_h, tile_size)
@@ -221,7 +225,7 @@ def rasterize_fused(
         rgb_t, dep_t, T_t = _composite(
             proj, colors, opacities, img_w, img_h, eps, rolling_shutter_time,
             tile_size, max_per_tile, max_tiles_per_gaussian, impl, rs_full_height,
-            rs_row_offset, max_total_entries,
+            rs_row_offset, max_total_entries, tile_budget,
         )
 
         def assemble(x):

@@ -265,13 +265,18 @@ def build_tile_lists(
     row0_px: torch.Tensor | float = 0.0,
     full_img_h: int | None = None,
     max_total_entries: int = 0,
+    tile_budget=None,
 ) -> TileLists:
     """Dense per-tile, depth-sorted Gaussian lists.
 
     conics/opacities (effective opacity, compensation folded in): when given,
     entries whose best pixel cannot reach the alpha floor are culled exactly
     before the sort. max_total_entries > 0 caps the sorted stream; real
-    entries past it are dropped and counted in entry_overflow. Inside a
+    entries past it are dropped and counted in entry_overflow. tile_budget:
+    a function of the uncapped per-tile counts (T,) int32 that gives each
+    tile's cap (T,) int32, at most max_per_tile (None: max_per_tile for
+    every tile); a depth slab of a mesh keeps what the whole cloud's lists
+    keep of it this way (`parallel.sharding`). Inside a
     trainer's step the binning adds its candidate, culled-in and landed
     entries to the active `profiling.BinningCounters`."""
     dev = means2d.device
@@ -305,7 +310,10 @@ def build_tile_lists(
     edges = torch.searchsorted(sorted_tiles_c, tile_range, right=False).to(torch.int32)
     starts, ends = edges[:-1], edges[1:]
     counts_full = ends - starts
-    counts = torch.clamp(counts_full, max=max_per_tile)
+    if tile_budget is None:
+        counts = torch.clamp(counts_full, max=max_per_tile)
+    else:
+        counts = torch.minimum(counts_full, tile_budget(counts_full))
     counters = profiling.active_counters()
     if counters is not None:
         counters.add(n_entries, n_real, counts)
@@ -326,7 +334,8 @@ def build_tile_lists(
     pos = torch.arange(n_entries, dtype=torch.int32, device=dev)
     t_of_pos = torch.clamp(sorted_tiles, 0, n_tiles - 1)
     j_of_pos = pos - starts[t_of_pos.long()]
-    slot_valid = (sorted_tiles < TILE_SENTINEL) & (j_of_pos < max_per_tile) & (pos < l_cap)
+    j_cap = max_per_tile if tile_budget is None else counts[t_of_pos.long()]
+    slot_valid = (sorted_tiles < TILE_SENTINEL) & (j_of_pos < j_cap) & (pos < l_cap)
     dummy = n_tiles * max_per_tile
     slot_of_pos = torch.where(slot_valid, t_of_pos * max_per_tile + j_of_pos,
                               torch.full_like(pos, dummy))

@@ -61,7 +61,7 @@ from ..ops.cuda import pack_param_table
 from ..ops.reference import RenderOutput
 from ..ops.ssim import ssim_map
 from ..ops.tiling import tile_wh
-from ..utils.profiling import span
+from ..utils.profiling import active_slab_counters, span
 from .collectives import Axis, all_gather, all_reduce_sum, all_to_all, from_next, gather_, reduce_
 
 AXES = ("data", "gauss", "blur", "tile")
@@ -218,7 +218,8 @@ def resolve_mesh(mc, config: sf.SplatfactoConfig, img_h: int, n_devices: int) ->
     if blur == 0 and tile == 0:
         for t in _divisors_desc(rem):
             strip = img_h // t
-            if img_h % t == 0 and strip % tile_h == 0 and (rem // t) <= s and s % (rem // t) == 0:
+            aligned = t == 1 or (img_h % t == 0 and strip % tile_h == 0)
+            if aligned and (rem // t) <= s and s % (rem // t) == 0:
                 tile, blur = t, rem // t
                 break
         else:
@@ -230,7 +231,8 @@ def resolve_mesh(mc, config: sf.SplatfactoConfig, img_h: int, n_devices: int) ->
         assert rem % blur == 0, (rem, blur)
         tile = rem // blur
     assert s % blur == 0, f"blur_samples={s} not divisible by blur axis {blur}"
-    assert img_h % tile == 0 and (img_h // tile) % tile_h == 0, (
+    # one strip is the whole image, whose last tile row may be partial
+    assert tile == 1 or (img_h % tile == 0 and (img_h // tile) % tile_h == 0), (
         f"image height {img_h} must split into {tile} tile-aligned strips")
     used = data * gauss * blur * tile
     assert used <= n_devices, (used, n_devices)
@@ -275,19 +277,30 @@ def _depth_slab_exchange(proj: projection.ProjectedGaussians, colors: torch.Tens
     per-slab composites merge into the single-device composite
     (`_combine_depth_slabs`) up to its early stop: a pixel stops once its T
     falls to T_EPS, while each slab starts at T = 1 and composites on (at
-    most T_EPS of a colour), and up to a tile's K rows, which the whole
-    cloud fills before a slab does.
+    most T_EPS of a colour). A tile's K rows are the whole cloud's: each
+    slab's binning keeps what the single composite keeps of it
+    (`_front_budget`). Nothing here waits for the device; the trade's counts
+    go to the active `SlabCounters`.
 
     Returns (ProjectedGaussians, colours, opacities, overflow) for this
     rank's slab; zero rows are padding (opacity 0, culled)."""
-    table = pack_param_table(proj, colors, opacities)[:-1]
-    rows = torch.cat([table, proj.extents], dim=1)
-    d = gauss.size
-    send, overflow = slab_buckets(rows, slab_ids(table[:, 9], table[:, 8] > 0, d, gauss), d,
-                                  slack)
-    recv = all_to_all(send, gauss).reshape(-1, rows.shape[1])
-    synth, colors_s, op_s = _from_rows(recv, table.shape[1])
-    return synth, colors_s, op_s, reduce_(overflow, gauss)
+    with span("splat.exchange"):
+        table = pack_param_table(proj, colors, opacities)[:-1]
+        rows = torch.cat([table, proj.extents], dim=1)
+        d = gauss.size
+        counters = active_slab_counters()
+        slab, slab_sizes = slab_ids(table[:, 9], table[:, 8] > 0, d, gauss)
+        send, overflow = slab_buckets(rows, slab, d, slack)
+        recv = all_to_all(send, gauss)
+        overflow = reduce_(overflow, gauss)
+        if counters is not None:
+            live = send[:, :, 8].detach() > 0
+            got = recv[:, :, 8].detach() > 0
+            me = gauss.index
+            counters.add(got.sum() - got[me].sum(), live.sum() - live[me].sum(), overflow,
+                         slab_sizes.max() * d / torch.clamp(slab_sizes.sum(), min=1))
+    synth, colors_s, op_s = _from_rows(recv.reshape(-1, rows.shape[1]), table.shape[1])
+    return synth, colors_s, op_s, overflow
 
 
 def slab_buckets(rows: torch.Tensor, slab: torch.Tensor, d: int, slack: float):
@@ -308,37 +321,67 @@ def slab_buckets(rows: torch.Tensor, slab: torch.Tensor, d: int, slack: float):
     return send, torch.clamp(cnt - c_send, min=0).sum()
 
 
-def slab_ids(depth: torch.Tensor, live: torch.Tensor, d: int, gauss: Axis) -> torch.Tensor:
-    """Each row's depth slab in [0, d) (d for rows that are not live): a
-    256-bin histogram of the live depths over the gauss axis, each bin in the
-    slab of its first row's quantile (slab boundaries fall between bins)."""
+def slab_ids(depth: torch.Tensor, live: torch.Tensor, d: int, gauss: Axis):
+    """(slab, sizes): each row's depth slab in [0, d) (d for rows that are
+    not live), from a 256-bin histogram of the live depths over the gauss
+    axis, each bin in the slab of its first row's quantile (slab boundaries
+    fall between bins, so a slab's depths all lie before the next one's);
+    and each slab's live rows over the whole axis, (d,) int64. Host scalars enter as fills and the histogram is a sort and a search,
+    so nothing waits for the device (a `torch.tensor` copy or `bincount`
+    would) and nothing accumulates by atomics."""
     depth = depth.detach()
-    big = torch.tensor(3.0e38, device=depth.device)
+    big = 3.0e38
     dmin = reduce_(torch.where(live, depth, big).min().reshape(1), gauss, dist.ReduceOp.MIN)[0]
     dmax = reduce_(torch.where(live, depth, -big).max().reshape(1), gauss, dist.ReduceOp.MAX)[0]
     nbins = 256
     scale = (nbins - 1) / torch.clamp(dmax - dmin, min=1e-9)
-    b = torch.clamp(((depth - dmin) * scale).to(torch.int32), 0, nbins - 1).long()
-    hist = torch.bincount(torch.where(live, b, nbins), minlength=nbins + 1)[:nbins]
-    hist = reduce_(hist, gauss)
+    b = torch.clamp(((depth - dmin) * scale).to(torch.int32), 0, nbins - 1)
+    ranked = torch.sort(torch.where(live, b, nbins)).values
+    edges = torch.searchsorted(ranked, torch.arange(nbins + 1, dtype=torch.int32,
+                                                    device=depth.device))
+    hist = reduce_(edges[1:] - edges[:-1], gauss)
     prefix = torch.cat([hist.new_zeros(1), torch.cumsum(hist, 0)[:-1]])
     total = torch.clamp(hist.sum(), min=1)
     bin_slab = torch.clamp(prefix * d // total, 0, d - 1)
-    return torch.where(live, bin_slab[b], d)
+    slab = torch.where(live, bin_slab[b.long()], d)
+    own = bin_slab[None, :] == torch.arange(d, device=depth.device)[:, None]
+    return slab, (own * hist[None, :]).sum(dim=1)
+
+
+def _front_budget(gauss: Axis, k: int):
+    """The tile budget (`tiling.build_tile_lists`) of this rank's depth
+    slab: a tile keeps the K rows nearest the camera over the whole cloud,
+    so slab s keeps K less the rows the slabs in front of it bin there (none
+    once they fill K). The per-tile counts of every slab are gathered over
+    the gauss axis, on the device."""
+    def budget(counts: torch.Tensor) -> torch.Tensor:
+        with span("splat.exchange"):
+            per_slab = gather_(counts, gauss)
+        front = per_slab[:gauss.index].sum(dim=0)
+        return torch.clamp(k - front, min=0, max=k).to(counts.dtype)
+    return budget
 
 
 def over(rgbs: torch.Tensor, ts: torch.Tensor):
     """Composite premultiplied layers front to back: rgbs (D, ..., 3) without
     background, ts (D, ...) their transmittances, in depth order:
-    rgb = sum_k (prod_{j<k} T_j) rgb_k, T = prod_k T_k."""
-    t_exc = torch.cat([torch.ones_like(ts[:1]), torch.cumprod(ts[:-1], dim=0)])
-    return (t_exc[..., None] * rgbs).sum(dim=0), torch.prod(ts, dim=0)
+    rgb = sum_k (prod_{j<k} T_j) rgb_k, T = prod_k T_k. A loop over the D
+    layers: autograd's `cumprod` and `prod` backward read on the host
+    whether a factor is zero, a wait for the device in every step."""
+    rgb, t = rgbs[0], ts[0]
+    for k in range(1, rgbs.shape[0]):
+        rgb = rgb + t[..., None] * rgbs[k]
+        t = t * ts[k]
+    return rgb, t
 
 
 def _combine_depth_slabs(rgb_local: torch.Tensor, t_local: torch.Tensor, gauss: Axis):
     """Merge the slabs' composites, rgb (S, h, w, 3) without background and
     T (S, h, w), gathered over the axis in slab order, with `over`."""
-    return over(all_gather(rgb_local, gauss), all_gather(t_local, gauss))
+    with span("splat.exchange"):
+        rgbs, ts = all_gather(rgb_local, gauss), all_gather(t_local, gauss)
+    with span("splat.composite"):
+        return over(rgbs, ts)
 
 
 def _render_strip_linear(params: sf.ModelParams, camera: Cameras, config: sf.SplatfactoConfig,
@@ -362,12 +405,17 @@ def _render_strip_linear(params: sf.ModelParams, camera: Cameras, config: sf.Spl
                 return rasterize.rasterize_fused(*_all_gather_projected(proj, colors, opac, gauss),
                                                  *args, **kw)
         elif config.gauss_shard_mode == "slab":
+            if config.max_total_entries > 0:
+                raise ValueError("depth slabs keep the whole cloud's K rows a tile; a cap on the "
+                                 "sorted stream (max_total_entries) would cut each slab's apart")
+
             def group(proj, colors, opac, w, h, bg, eps, reduce, mid_index, **kw):
                 proj, colors, op, overflow = _depth_slab_exchange(proj, colors, opac, gauss,
                                                                   config.slab_slack)
                 info["slab_overflow"] = info["slab_overflow"] + overflow
-                out = rasterize.rasterize_fused(proj, colors, op, w, h, torch.zeros_like(bg),
-                                                eps=eps, **kw)
+                out = rasterize.rasterize_fused(
+                    proj, colors, op, w, h, torch.zeros_like(bg), eps=eps,
+                    tile_budget=_front_budget(gauss, kw["max_per_tile"]), **kw)
                 rgb_s, t_s = _combine_depth_slabs(out.rgb, out.transmittance, gauss)
                 t_mean = t_s.mean(dim=0)
                 return RenderOutput(rgb=(rgb_s + t_s[..., None] * bg).mean(dim=0),
@@ -418,7 +466,7 @@ def _strip(mesh: Mesh, camera: Cameras, config: sf.SplatfactoConfig) -> tuple[in
     if full_h % n_tile:
         raise ValueError(f"image height {full_h} does not divide the tile axis {n_tile}")
     strip_h = full_h // n_tile
-    if strip_h % tile_wh(config.tile_size)[1]:
+    if n_tile > 1 and strip_h % tile_wh(config.tile_size)[1]:
         raise ValueError(f"strip height {strip_h} is not a multiple of the tile height")
     return strip_h, mesh.coords["tile"] * strip_h
 
@@ -480,17 +528,18 @@ def reduce_gradients(mesh: Mesh, sharded: list[torch.Tensor], replicated: list[t
     gradient (the same on every rank) are left alone."""
     buckets = ([(sharded + replicated, mesh.axes["world"])] if mesh.shape["gauss"] == 1
                else [(sharded, mesh.axes["peers"]), (replicated, mesh.axes["world"])])
-    for leaves, axis in buckets:
-        leaves = [p for p in leaves if p.grad is not None]
-        if axis.size == 1 or not leaves:
-            continue
-        flat = torch.cat([p.grad.reshape(-1) for p in leaves])
-        reduce_(flat, axis)
-        offset = 0
-        for p in leaves:
-            n = p.grad.numel()
-            p.grad.copy_(flat[offset:offset + n].view_as(p.grad))
-            offset += n
+    with span("splat.exchange"):
+        for leaves, axis in buckets:
+            leaves = [p for p in leaves if p.grad is not None]
+            if axis.size == 1 or not leaves:
+                continue
+            flat = torch.cat([p.grad.reshape(-1) for p in leaves])
+            reduce_(flat, axis)
+            offset = 0
+            for p in leaves:
+                n = p.grad.numel()
+                p.grad.copy_(flat[offset:offset + n].view_as(p.grad))
+                offset += n
 
 
 def world_sum(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
@@ -609,3 +658,93 @@ def gather_train_state(mesh: Mesh, params: sf.ModelParams, optimizer,
     if mesh.shape["gauss"] == 1:
         return params, strat_state
     return _remap_state(mesh, params, optimizer, strat_state, gather_rows)
+
+
+# ------------------------------------------------------ the shard's refine
+class ShardPlacement(st.Placement):
+    """`strategy.refine`'s placement on a gauss-sharded mesh, with the
+    single-device semantics over the whole capacity axis: the r-th candidate
+    of the whole cloud goes to its r-th dead slot. `ranks` gathers each
+    shard's candidate and dead-slot counts over the gauss axis (two integers
+    a shard, read on the host: the refine's one wait) and gives this shard's
+    first candidate rank and the global dead count; `scatter` sends each new
+    row to the shard of its dead slot in one exchange whose sizes those
+    counts fix, and writes the rows arriving here into this shard's first
+    dead slots, in order. `moved` counts the rows that went to another
+    shard, over the whole axis."""
+
+    def __init__(self, mesh: Mesh):
+        self.axis = mesh.axes["gauss"]
+        self.moved = 0
+        self._counts: list[list[int]] | None = None
+
+    def ranks(self, want: torch.Tensor, alive_b: torch.Tensor):
+        local = torch.stack([want.sum(), alive_b.numel() - alive_b.sum()]).to(torch.int64)
+        with span("splat.exchange"):
+            self._counts = gather_(local, self.axis).tolist()
+        wants = [w for w, _ in self._counts]
+        return sum(wants[:self.axis.index]), sum(d for _, d in self._counts)
+
+    def _pairs(self) -> list[list[int]]:
+        """rows[s][t]: the candidates of shard s placed in a dead slot of
+        shard t (ranks [P_s, P_s + K_s) against [Q_t, Q_t + D_t))."""
+        wants = [w for w, _ in self._counts]
+        deads = [d for _, d in self._counts]
+        n_dead = sum(deads)
+        placed = [max(0, min(w, n_dead - sum(wants[:s]))) for s, w in enumerate(wants)]
+        p = [sum(placed[:s]) for s in range(len(placed))]
+        q = [sum(deads[:t]) for t in range(len(deads))]
+        return [[max(0, min(p[s] + placed[s], q[t] + deads[t]) - max(p[s], q[t]))
+                 for t in range(len(deads))] for s in range(len(placed))]
+
+    def scatter(self, params: sf.GaussianParams, new_vals: sf.GaussianParams,
+                want: torch.Tensor):
+        pairs = self._pairs()
+        me, n = self.axis.index, len(pairs)
+        send = pairs[me]
+        recv = [pairs[s][me] for s in range(n)]
+        self.moved = sum(pairs[s][t] for s in range(n) for t in range(n) if s != t)
+        fields = sf.GaussianParams._fields
+        widths = [getattr(params, f)[0].numel() for f in fields]
+        # the placed candidates in slot order (they lead the want mask's order)
+        cand = torch.argsort((~want).to(torch.uint8), stable=True)[:sum(send)]
+        rows = torch.cat([getattr(new_vals, f)[cand].reshape(len(cand), w)
+                          for f, w in zip(fields, widths)], 1)
+        with span("splat.exchange"):
+            if n == 1:
+                got = rows
+            else:
+                got = rows.new_empty((sum(recv), rows.shape[1]))
+                dist.all_to_all_single(got, rows, output_split_sizes=recv,
+                                       input_split_sizes=send, group=self.axis.group)
+        alive_b = params.alive > 0.5
+        dead = torch.argsort(alive_b.to(torch.uint8), stable=True)[:got.shape[0]]
+        out, col = [], 0
+        for f, w in zip(fields, widths):
+            t = getattr(params, f).clone()
+            t[dead] = got[:, col:col + w].reshape((-1,) + tuple(t.shape[1:]))
+            out.append(t)
+            col += w
+        filled = torch.zeros_like(alive_b)
+        filled[dead] = True
+        counters = active_slab_counters()
+        if counters is not None:
+            counters.moved += self.moved
+        return sf.GaussianParams(*out), filled
+
+
+def refine_shard(mesh: Mesh, params: sf.GaussianParams, state: st.StrategyState, step: int,
+                 config: sf.SplatfactoConfig, noise: tuple[torch.Tensor, torch.Tensor]):
+    """`strategy.refine` on this rank's shard of a gauss-sharded mesh, the
+    same state bitwise as the refine of the gathered cloud: cull, densify and
+    the accumulators' zeroing on the shard, the split noise the whole
+    capacity's draw cut to the shard, the new rows placed by
+    `ShardPlacement`. Returns (params, state, changed, info) as `refine`
+    does, info summed over the gauss axis (0-dim tensors)."""
+    noise = tuple(shard_rows(mesh, e) for e in noise)
+    params, state, changed, info = st.refine(params, state, step, config, noise,
+                                             ShardPlacement(mesh))
+    keys = list(info)
+    with span("splat.exchange"):
+        sums = reduce_(torch.stack([info[k] for k in keys]).to(torch.int64), mesh.axes["gauss"])
+    return params, state, changed, dict(zip(keys, sums.unbind()))

@@ -17,7 +17,7 @@ profiler recording it is a shared null context and costs a flag check. The
 names start with "splat.": `splat.train_step` and `splat.eval_camera_step`
 hold one step's host enqueue, `splat.refine` the refine, and the layers
 `splat.project`, `splat.bin`, `splat.fetch`, `splat.composite`,
-`splat.loss` and `splat.optimizer` the work of each. Backward work runs
+`splat.loss`, `splat.optimizer` and `splat.exchange` the work of each. Backward work runs
 outside them (autograd's own thread): a trace reader follows its forward
 op's `fwdbwd` flow back to the span; the hand-written backwards open their
 own.
@@ -25,6 +25,10 @@ own.
 `BinningCounters` counts the binnings of the steps a trainer runs with them
 active (`counting`): the candidate (Gaussian, tile) entries, the entries that
 survive the footprint and conic cull, and those that land in a tile's list.
+`SlabCounters` count, on a mesh that shards the Gaussians in depth slabs,
+the rows of each slab trade and the refine's rows sent to another shard;
+`splat.exchange` holds the mesh's exchanges (the slab trade, the slabs'
+merge, the gradients' sum, the refine's rows).
 """
 from __future__ import annotations
 
@@ -99,23 +103,76 @@ class BinningCounters:
         return out
 
 
+class SlabCounters:
+    """The depth slabs' counts since the last `take` (`parallel/sharding.py`):
+    `trades` on the host, and per trade on the device the rows this rank
+    received from other ranks (`rows`) and sent to them (`sent`), the rows
+    past a bucket's capacity over the gauss axis (`dropped`) and the fullest
+    slab's rows over the mean (`fullest`, summed over the trades); `moved`
+    (host) the new rows a refine sent to another shard. A trade adds one
+    small kernel; `read` and `take` wait for the device."""
+
+    DEVICE_KEYS = ("rows", "sent", "dropped", "fullest")
+
+    def __init__(self):
+        self.restore({})
+
+    def restore(self, counts: dict) -> None:
+        """Start from `counts` (what `read` gave; {} for zero)."""
+        self.trades = int(counts.get("trades", 0))
+        self.moved = int(counts.get("moved", 0))
+        self._host = [float(counts.get(k, 0)) for k in self.DEVICE_KEYS]
+        self._acc: torch.Tensor | None = None      # (4,) float64: DEVICE_KEYS
+
+    def add(self, rows: torch.Tensor, sent: torch.Tensor, dropped: torch.Tensor,
+            fullest: torch.Tensor) -> None:
+        """One slab trade's 0-dim device counts (`DEVICE_KEYS`)."""
+        self.trades += 1
+        v = torch.stack([t.to(torch.float64) for t in (rows, sent, dropped, fullest)])
+        self._acc = v if self._acc is None else self._acc.add_(v)
+
+    def read(self) -> dict:
+        """{"trades", "moved", "rows", "sent", "dropped", "fullest"} so far
+        (`fullest` the sum over the trades)."""
+        acc = self._acc.tolist() if self._acc is not None else [0.0] * 4
+        out = {"trades": self.trades, "moved": self.moved}
+        for k, h, a in zip(self.DEVICE_KEYS, self._host, acc):
+            out[k] = h + a if k == "fullest" else int(round(h + a))
+        return out
+
+    def take(self) -> dict:
+        """`read`, then start again from zero."""
+        out = self.read()
+        self.restore({})
+        return out
+
+
 _ACTIVE: contextvars.ContextVar[BinningCounters | None] = contextvars.ContextVar(
     "splat_binning_counters", default=None)
+_ACTIVE_SLAB: contextvars.ContextVar[SlabCounters | None] = contextvars.ContextVar(
+    "splat_slab_counters", default=None)
 
 
 @contextlib.contextmanager
-def counting(counters: BinningCounters):
-    """Within: the binnings of this context count into `counters`."""
-    token = _ACTIVE.set(counters)
+def counting(counters: BinningCounters | None, slab: SlabCounters | None = None):
+    """Within: the binnings of this context count into `counters`, the depth
+    slabs' trades and the refine's moved rows into `slab` (None: not)."""
+    tokens = _ACTIVE.set(counters), _ACTIVE_SLAB.set(slab)
     try:
         yield
     finally:
-        _ACTIVE.reset(token)
+        _ACTIVE.reset(tokens[0])
+        _ACTIVE_SLAB.reset(tokens[1])
 
 
 def active_counters() -> BinningCounters | None:
     """The counters binning adds to here, None where nothing counts."""
     return _ACTIVE.get()
+
+
+def active_slab_counters() -> SlabCounters | None:
+    """The counters the depth slabs add to here, None where nothing counts."""
+    return _ACTIVE_SLAB.get()
 
 
 class StepTimer:
