@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, each of which raises (and the script exits nonzero) on failure:
-  1. build the nine CUDA kernel libraries with nvcc (in parallel) and print
+  1. build the ten CUDA kernel libraries with nvcc (in parallel) and print
      the environment: card, power limit, torch / CUDA versions, TF32 flags;
   2. hold each kernel against its plain PyTorch version on the card at the
      main path's shapes (the binning of the first camera): seg_copy bitwise,
@@ -31,7 +31,13 @@ Phases, each of which raises (and the script exits nonzero) on failure:
      gradient (the camera's included) within 1e-4 of max|plain route|, the
      radii / extents mismatches each within float32 rounding of an integer
      before ceil, the backward bitwise equal over two launches and the
-     frozen Gaussians' backward a camera-only launch;
+     frozen Gaussians' backward a camera-only launch; the binning kernels
+     (`scripts_dev/probe_bin_tiles_torch.py`) against the plain route
+     (impl "torch") at camera 0's binning (tile 16 and 16x8) and on a depth
+     slab's receive buffer of 2^23 rows, 3/8 of them live: counts, starts,
+     overflow, clipped, entry_overflow, entry_slots and the real count
+     bitwise, sorted_ids bitwise below the real entries, two launches
+     bitwise equal, tile_population equal;
   3. the render path: 4 cameras at 1024x1024 from a 100k-Gaussian model (the
      bench scene, random SH from a seed) through `render_camera` with the
      default config (5 fused blur samples, rolling shutter, SH degree 3,
@@ -63,7 +69,9 @@ Phases, each of which raises (and the script exits nonzero) on failure:
      launches row_scatter, seg_dma, chunk_cumsum and bwd_stacked;
   7. time each kernel, its plain version and a library yardstick on phase
      2's inputs (the probes' inputs for the probe kernels; the projection
-     pair also beside the plain route it replaces), beside the least
+     pair also beside the plain route it replaces; the binning at camera 0
+     and on the 2^23-row buffer beside the plain route and torch.sort of
+     the culled-in entries' keys), beside the least
      time the card could take (for the compositors the smaller of two counts:
      every live pixel of a tile, or only the (row, warp) groups where a pair
      composites; both printed, with the share of groups the cull keeps and
@@ -1259,7 +1267,7 @@ def main() -> int:
     from splat_tpu_torch.cameras import optimizers as cam_opt
     from splat_tpu_torch.ops import cuda as kcuda
     from splat_tpu_torch.ops import rasterize, tiling
-    from splat_tpu_torch.ops.cuda import build
+    from splat_tpu_torch.ops.cuda import bin_tiles, build
     from splat_tpu_torch.ops.cuda import rasterize_kernels as rk
     from splat_tpu_torch.ops.cuda.bwd_stacked import bwd_stacked, bwd_stacked_plain, stacked_layout
     from splat_tpu_torch.ops.cuda.chunk_cumsum import chunk_cumsum
@@ -1274,9 +1282,10 @@ def main() -> int:
               ("probe_kernel_gather_torch", "probe_seg_dma_torch", "probe_cumsum_torch",
                "probe_bwd_stacked_torch", "probe_project_sh_torch")}
     cull_probe = load_probe("probe_cull_torch")
+    bin_probe = load_probe("probe_bin_tiles_torch")
     ptxas_report = load_probe("time_compositors_torch").ptxas_report
     path_kernels = (seg_copy, rk.rasterize_fwd, rk.rasterize_bwd, row_gather, project_sh_fwd,
-                    project_sh_bwd)
+                    project_sh_bwd, bin_tiles.tile_lists, bin_tiles.population)
     sh_probe = probes.pop("probe_project_sh_torch")
     probe_kernels = (row_scatter, scatter_plan, seg_dma, chunk_cumsum, bwd_stacked)
     stacked_probe = probes["probe_bwd_stacked_torch"]
@@ -1517,7 +1526,8 @@ def main() -> int:
     check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmul off")
     t0 = time.perf_counter()
     report = build.build(["seg_copy", "rasterize_fwd", "rasterize_bwd", "row_gather",
-                          "row_scatter", "seg_dma", "chunk_cumsum", "bwd_stacked", "project_sh"])
+                          "row_scatter", "seg_dma", "chunk_cumsum", "bwd_stacked", "project_sh",
+                          "bin_tiles"])
     print(f"build: {time.perf_counter() - t0:.2f} s wall for {sorted(report) or 'cached'}")
     for name, r in report.items():
         info = [ln.strip() for ln in r["log"].splitlines() if "registers" in ln or "spill" in ln]
@@ -1537,7 +1547,11 @@ def main() -> int:
         "project_sh_fwd<3>": ptxas_report(report["project_sh"]["log"], "fwd_kernelILi3E")
         if "project_sh" in report else "cached",
         "project_sh_bwd<3>": ptxas_report(report["project_sh"]["log"], "bwd_kernelILi3E")
-        if "project_sh" in report else "cached"}
+        if "project_sh" in report else "cached",
+        "bin_tiles count": ptxas_report(report["bin_tiles"]["log"], "count_kernel")
+        if "bin_tiles" in report else "cached",
+        "bin_tiles sort": ptxas_report(report["bin_tiles"]["log"], "sort_kernel")
+        if "bin_tiles" in report else "cached"}
     card = nvidia_smi("name,power.limit")
     max_clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     props = torch.cuda.get_device_properties(0)
@@ -1573,6 +1587,10 @@ def main() -> int:
         eps = motion.eps - t_a
         lists = rasterize.bin_tiles(proj, op, RES, RES, eps, motion.rs_time, tile_size,
                                     k_pad, cfg.max_tiles_per_gaussian)
+        if model is params:
+            bin_inputs[tile_size] = bin_probe.from_projection(
+                proj, op, eps, motion.rs_time, RES, RES, tile_size, k_pad,
+                cfg.max_tiles_per_gaussian)
         table = kcuda.pack_param_table(proj, colors, op)
         sp = kcuda.sorted_stream(table, lists.sorted_ids, k_pad)
         check(torch.equal(sp, row_gather_plain(table, lists.sorted_ids, k_pad)),
@@ -1580,6 +1598,7 @@ def main() -> int:
         return lists, sp, eps, motion.rs_time, table
 
     errs = {}
+    bin_inputs = {}
     with torch.no_grad():
         lists, sp, eps, rs, table = kernel_inputs(cfg.tile_size)
         blocks = seg_copy(sp, lists.starts, K, impl="cuda")
@@ -1698,6 +1717,17 @@ def main() -> int:
         probes["probe_seg_dma_torch"].check(probe_inputs["probe_seg_dma_torch"])
         cumsum_errs = probes["probe_cumsum_torch"].check(probe_inputs["probe_cumsum_torch"])
         errs["chunk_cumsum"] = max(cumsum_errs.values())
+        # the binning kernels against the plain route, under their contract: at
+        # camera 0's binning (tile 16 and 16x8) and on a depth slab's receive
+        # buffer (2^23 rows, 3/8 of them live, in four buckets)
+        bin_res = {f"camera 0, tile {t}": bin_probe.check(inp) for t, inp in bin_inputs.items()}
+        slab_inputs = bin_probe.make_inputs(dev, rows=1 << 23, live=0.375)
+        bin_res["2^23 rows, 3/8 live"] = bin_probe.check(slab_inputs)
+        for label, r in bin_res.items():
+            print(f"bin_tiles vs the plain route, {label}: {r['real']} real entries of "
+                  f"{r['live_rows']} live rows, {r['landed']} landed, sorted_ids compared at "
+                  f"{r['compared']}; long tiles {r['long_tiles']} (largest tile {r['max_tile_real']}"
+                  f"); two launches bitwise equal, tile_population equal")
         # the projection and SH pair against the plain route at 2^20 slots
         sh_inputs = sh_probe.make_inputs(dev)
     sh_res = sh_probe.check(sh_inputs)
@@ -2172,6 +2202,13 @@ def main() -> int:
         del bwd_args, fwd_args, blocks, sp, table, d_slots
     sh_times = sh_probe.bench(sh_inputs, KERNEL_RUNS, KERNEL_REPS)
     del sh_inputs
+    bin_times = {f"camera 0, tile {cfg.tile_size}": bin_probe.bench(bin_inputs[cfg.tile_size]),
+                 "2^23 rows, 3/8 live": bin_probe.bench(slab_inputs)}
+    for label, bt in bin_times.items():
+        print(f"bin_tiles, {label}: {bt['ms']:.4f} ms a binning (bound {bt['bound_ms']:.4f} ms "
+              f"by bytes from {bt['bytes']} B; the plain route {bt['plain_ms']:.4f}; torch.sort "
+              f"of the culled-in entries' int64 keys {bt['library_ms']:.4f})")
+    del slab_inputs, bin_inputs
     print(f"project_sh at {sh_probe.N} slots, degree {sh_probe.DEGREE}, velocities: forward "
           f"{sh_times['fwd_ms']:.4f} ms (bound {sh_times['fwd_bound_ms']:.4f} ms by bytes; plain "
           f"closed form {sh_times['fwd_plain_ms']:.4f}; the plain route "
@@ -2275,6 +2312,13 @@ def main() -> int:
          "route_fwd_bwd_ms": sh_times["route_fwd_bwd_ms"],
          "kernel_fwd_bwd_ms": sh_times["kernel_fwd_bwd_ms"], "bound_ms": sh_times["bwd_bound_ms"],
          "bound_by": "bytes", "library_ms": None},
+        # a binning at camera 0 (count, scan, scatter, sort and their PyTorch
+        # ops); plain_ms the plain route's, library_ms torch.sort of the
+        # culled-in entries' keys; the lists bitwise the plain route's
+        {"name": "bin_tiles", "route": "cuda", "source": "splat_tpu_torch/ops/cuda/csrc/bin_tiles.cu",
+         "replaces": None, "launches": launches["bin_tiles"], "max_abs_err": 0.0,
+         **{k: bin_times[f"camera 0, tile {cfg.tile_size}"][k]
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms")}, "bound_by": "bytes"},
     ]
     by_path["fit"] = fit["launches"]
     by_path.update(tools["launches"])

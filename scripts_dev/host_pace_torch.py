@@ -3,6 +3,7 @@
 profiler running?
 
     python3 scripts_dev/host_pace_torch.py [--cell phone_mbrs.train] [--seed N] [--steps 40]
+                                           [--sync-audit 20]
 
 Builds the benchmark cell's trainer as `perfbench/run.py` does (its set-up),
 then times single steps, each from a synchronised card: `enqueue_ms`, the
@@ -14,19 +15,52 @@ the pace; where they meet, the host does (or the queue filled). Steps that
 log or refine read the device on the host and are left out. Prints the
 medians of both, per kind of step (train alone, train with the eval-camera
 step), and the card as nvidia-smi names it, as one JSON line.
+
+--sync-audit N then runs on to 10 steps past a refine and runs N steps
+(`Trainer.run`, chunks of `sync_every`) under
+`torch.cuda.set_sync_debug_mode("warn")`: `sync_sites` counts every call
+site that waited for the card (the chunk's closing synchronise is expected).
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import statistics
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+
+def sync_sites(tr, steps: int) -> dict:
+    """`steps` of `tr.run` from 10 steps past a refine, under the sync debug
+    mode "warn": {file:line: waits}."""
+    import torch
+
+    refine, chunk = tr.model_config.refine_every, tr.trainer_config.sync_every
+    while tr.step % refine != 10:
+        tr.run(min(chunk, (10 - tr.step) % refine or refine))
+    sites = collections.Counter()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            tr.run(steps)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            where = Path(w.filename)
+            where = where.relative_to(ROOT) if ROOT in where.parents else where
+            sites[f"{where}:{w.lineno}"] += 1
+    return dict(sites.most_common())
 
 
 def main() -> int:
@@ -34,6 +68,7 @@ def main() -> int:
     ap.add_argument("--cell", default="phone_mbrs.train")
     ap.add_argument("--seed", type=int, default=4000000201)
     ap.add_argument("--steps", type=int, default=40)
+    ap.add_argument("--sync-audit", type=int, default=0, metavar="STEPS")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("host_pace_torch: needs a CUDA device", file=sys.stderr)
@@ -80,6 +115,11 @@ def main() -> int:
                          "step_ms": statistics.median(s for _, s in r),
                          "enqueue_ms_all": [round(e, 3) for e, _ in r],
                          "step_ms_all": [round(s, 3) for _, s in r]}
+    if args.sync_audit:
+        start = tr.step
+        out["sync_sites"] = sync_sites(tr, args.sync_audit)
+        out["sync_audit_steps"] = [tr.step - args.sync_audit, tr.step]
+        out["sync_audit_from"] = start
     print(json.dumps(out), flush=True)
     return 0
 

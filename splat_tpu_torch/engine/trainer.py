@@ -561,16 +561,18 @@ class Trainer:
         rates the next history records carry."""
         c = self.binning_counters.take()
         if self._gauss_sharded():
-            keys = ("candidates", "real", "landed")
+            keys = ("candidates", "real", "landed", "long_tiles")
             sums = sharding.reduce_(torch.tensor([c[k] for k in keys], dtype=torch.int64,
                                                  device=self.device), self.mesh.axes["gauss"])
             c.update(zip(keys, sums.tolist()))
         if c["binnings"] > 0:
             self._binning_rates = {
                 "binning_yield": round(c["real"] / max(c["candidates"], 1), 6),
-                "landed_per_binning": round(c["landed"] / c["binnings"], 1)}
+                "landed_per_binning": round(c["landed"] / c["binnings"], 1),
+                "long_tiles_per_binning": round(c["long_tiles"] / c["binnings"], 3)}
         return {"binnings": c["binnings"], "binning_candidates": c["candidates"],
-                "binning_real": c["real"], "binning_landed": c["landed"]}
+                "binning_real": c["real"], "binning_landed": c["landed"],
+                "binning_long_tiles": c["long_tiles"]}
 
     def _slab_event(self) -> dict:
         """The depth slabs' counts since the last refine (rank 0's trades;

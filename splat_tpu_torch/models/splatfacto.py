@@ -469,6 +469,7 @@ def binning_counts(params: ModelParams, camera: Cameras, config: SplatfactoConfi
             proj.means2d, proj.extents, proj.depths, proj.valid, cam.width, cam.height,
             config.tile_size, config.max_tiles_per_gaussian,
             radius_pad=torch.abs(proj.pix_vels) * t_max, conics=proj.conics, opacities=op_eff,
+            impl=config.impl,
         )
 
 

@@ -17,6 +17,7 @@ import torch
 from ...utils.profiling import span
 from .. import tiling
 from ..projection import ProjectedGaussians
+from . import bin_tiles as _bin_tiles
 from .project_sh import project_sh_bwd, project_sh_fwd
 from .rasterize_kernels import NPARAM, PARAM_STRIDE, rasterize_bwd, rasterize_fwd
 from .row_gather import row_gather as _row_gather
@@ -24,15 +25,17 @@ from .seg_copy import seg_copy as _seg_copy
 
 
 def path_launches() -> dict[str, int]:
-    """This process's launches of the six kernels on the render and training
+    """This process's launches of the kernels on the render and training
     path (each wrapper counts its own; zero where only plain versions ran):
-    the fetch and compositing kernels, and the projection pair (a backward
+    the fetch and compositing kernels, the projection pair (a backward
     launch is the per-Gaussian kernel with, where the camera takes a
-    gradient, its fixed-order sum over blocks)."""
+    gradient, its fixed-order sum over blocks) and the binning (a launch is
+    one binning's count, scan, scatter and sort)."""
     return {"seg_copy": _seg_copy.launches, "rasterize_fwd": rasterize_fwd.launches,
             "rasterize_bwd": rasterize_bwd.launches, "row_gather": _row_gather.launches,
             "project_sh_fwd": project_sh_fwd.launches,
-            "project_sh_bwd": project_sh_bwd.launches}
+            "project_sh_bwd": project_sh_bwd.launches,
+            "bin_tiles": _bin_tiles.tile_lists.launches}
 
 
 def pack_param_table(

@@ -97,11 +97,14 @@ def bin_tiles(
     max_total_entries: int = 0,
     materialize_indices: bool = False,
     tile_budget=None,
+    impl: str = "auto",
 ) -> tiling.TileLists:
     """Bin once for all sub-frames: the footprint is padded by the largest
     screen shift over the exposure and readout, |pix_vel| * (max|eps| + |rs|/2)
     per axis, and the conic cull uses the effective opacity. tile_budget:
-    each tile's cap from its uncapped count (`tiling.build_tile_lists`)."""
+    each tile's cap from its uncapped count (`tiling.build_tile_lists`).
+    impl: "auto" (the binning kernels on CUDA tensors), "torch" (the plain
+    route) or "cuda"."""
     with span("splat.bin"):
         rs = scalar_tensor(rolling_shutter_time, opacities.device, opacities.dtype)
         t_max = torch.amax(torch.abs(eps)) + 0.5 * torch.abs(rs)
@@ -113,7 +116,7 @@ def bin_tiles(
             radius_pad=radius_pad, conics=proj.conics, opacities=op_eff,
             materialize_indices=materialize_indices,
             row0_px=rs_row_offset, full_img_h=rs_full_height,
-            max_total_entries=max_total_entries, tile_budget=tile_budget,
+            max_total_entries=max_total_entries, tile_budget=tile_budget, impl=impl,
         )
 
 
@@ -125,7 +128,7 @@ def _composite(proj, colors, opacities, img_w, img_h, eps, rs, tile_size,
     lists = bin_tiles(
         proj, opacities, img_w, img_h, eps, rs, tile_size, max_per_tile,
         max_tiles_per_gaussian, rs_full_height, rs_row_offset, max_total_entries,
-        materialize_indices=(impl == "torch"), tile_budget=tile_budget,
+        materialize_indices=(impl == "torch"), tile_budget=tile_budget, impl=impl,
     )
     if impl == "torch":
         tw, _ = tiling.num_tiles(img_w, img_h, tile_size)

@@ -12,6 +12,11 @@
 Integer results (counts, starts, sorted_ids, entry_slots, overflow counts)
 equal JAX's for the same projected inputs. Binning carries no gradient: it
 reads detached copies of its float inputs.
+
+That is the plain route, taken on CPU tensors and under impl "torch". On
+CUDA tensors `build_tile_lists` and `tile_population` run the kernels of
+`ops/cuda/bin_tiles.py`, which build the same lists from the culled-in
+entries alone, with no (N, M) candidate tensors and no sort over them.
 """
 from __future__ import annotations
 
@@ -228,14 +233,31 @@ def _expand_tile_entries(
     return tile_ids, was_clipped
 
 
+def _kernel_route(x: torch.Tensor, impl: str) -> bool:
+    """Whether a binning takes the kernels (`ops/cuda/bin_tiles.py`): impl
+    "auto" on CUDA tensors, or "cuda"; "torch" and CPU tensors take the plain
+    route."""
+    if impl not in ("auto", "torch", "cuda"):
+        raise ValueError(f"unknown impl {impl!r}")
+    if impl == "cuda" and not x.is_cuda:
+        raise ValueError(f"impl='cuda' needs CUDA tensors, got {x.device}")
+    return impl == "cuda" or (impl == "auto" and x.is_cuda)
+
+
 def tile_population(
     means2d, extents, depths, valid, img_w: int, img_h: int, tile_size=16,
     max_tiles_per_gaussian: int = 64, radius_pad=None, conics=None,
     opacities=None, alpha_thresh: float = 1.0 / 255.0, row0_px=0.0,
-    full_img_h: int | None = None,
+    full_img_h: int | None = None, impl: str = "auto",
 ) -> torch.Tensor:
     """Uncapped per-tile entry counts (T,) int32: the same footprint and conic
-    cull as build_tile_lists, without the sort or the per-tile cap."""
+    cull as build_tile_lists, without the sort or the per-tile cap. On CUDA
+    tensors (impl "auto") the count kernel of `ops/cuda/bin_tiles.py`."""
+    if _kernel_route(means2d, impl):
+        from .cuda import bin_tiles
+        return bin_tiles.population(
+            means2d, extents, valid, img_w, img_h, tile_size, max_tiles_per_gaussian,
+            radius_pad, conics, opacities, alpha_thresh, row0_px, full_img_h)
     tw, th = num_tiles(img_w, img_h, tile_size)
     tile_ids, _ = _expand_tile_entries(
         means2d, extents, depths, valid, img_w, img_h, tile_size,
@@ -266,6 +288,7 @@ def build_tile_lists(
     full_img_h: int | None = None,
     max_total_entries: int = 0,
     tile_budget=None,
+    impl: str = "auto",
 ) -> TileLists:
     """Dense per-tile, depth-sorted Gaussian lists.
 
@@ -278,7 +301,56 @@ def build_tile_lists(
     every tile); a depth slab of a mesh keeps what the whole cloud's lists
     keep of it this way (`parallel.sharding`). Inside a
     trainer's step the binning adds its candidate, culled-in and landed
-    entries to the active `profiling.BinningCounters`."""
+    entries to the active `profiling.BinningCounters`.
+
+    On CUDA tensors (impl "auto", or "cuda") the kernels of
+    `ops/cuda/bin_tiles.py` build the same lists from the culled-in entries
+    alone; sorted_ids then holds the id 0 past the real entries, which no
+    output reads. impl "torch" and CPU tensors take the plain route."""
+    span_x, span_y = _spans(tile_size, max_tiles_per_gaussian)
+    n_entries = means2d.shape[0] * span_x * span_y
+    if _kernel_route(means2d, impl):
+        from .cuda import bin_tiles
+        lists, n_real, long_tiles = bin_tiles.tile_lists(
+            means2d, extents, depths, valid, img_w, img_h, tile_size, max_per_tile,
+            max_tiles_per_gaussian, radius_pad, conics, opacities, alpha_thresh, row0_px,
+            full_img_h, max_total_entries, tile_budget)
+    else:
+        lists, n_real = _tile_lists_plain(
+            means2d, extents, depths, valid, img_w, img_h, tile_size, max_per_tile,
+            max_tiles_per_gaussian, radius_pad, conics, opacities, alpha_thresh, row0_px,
+            full_img_h, max_total_entries, tile_budget)
+        long_tiles = None
+    counters = profiling.active_counters()
+    if counters is not None:
+        counters.add(n_entries, n_real, lists.counts, long_tiles)
+    if materialize_indices:
+        lists = lists._replace(indices=materialize(lists, max_per_tile))
+    return lists
+
+
+def materialize(lists: TileLists, max_per_tile: int) -> torch.Tensor:
+    """The dense (T, K) id table of a binning, -1 past each tile's count."""
+    j = torch.arange(max_per_tile, dtype=torch.int32, device=lists.counts.device)[None, :]
+    ids = lists.sorted_ids
+    ids_padded = torch.cat([ids, ids.new_zeros(max_per_tile)])
+    idx = ids_padded[(lists.starts[:, None] + j).long()]
+    return torch.where(j < lists.counts[:, None], idx, torch.full_like(idx, -1))
+
+
+def cap_counts(counts_full: torch.Tensor, max_per_tile: int, tile_budget) -> torch.Tensor:
+    """Each tile's landed count: its count in the stream, capped at
+    max_per_tile or at tile_budget(counts_full)."""
+    if tile_budget is None:
+        return torch.clamp(counts_full, max=max_per_tile)
+    return torch.minimum(counts_full, tile_budget(counts_full))
+
+
+def _tile_lists_plain(means2d, extents, depths, valid, img_w, img_h, tile_size, max_per_tile,
+                      max_tiles_per_gaussian, radius_pad, conics, opacities, alpha_thresh,
+                      row0_px, full_img_h, max_total_entries, tile_budget):
+    """The plain route of build_tile_lists, without `indices`: (TileLists,
+    culled-in entries as an int32 scalar)."""
     dev = means2d.device
     n = means2d.shape[0]
     tw, th = num_tiles(img_w, img_h, tile_size)
@@ -310,21 +382,7 @@ def build_tile_lists(
     edges = torch.searchsorted(sorted_tiles_c, tile_range, right=False).to(torch.int32)
     starts, ends = edges[:-1], edges[1:]
     counts_full = ends - starts
-    if tile_budget is None:
-        counts = torch.clamp(counts_full, max=max_per_tile)
-    else:
-        counts = torch.minimum(counts_full, tile_budget(counts_full))
-    counters = profiling.active_counters()
-    if counters is not None:
-        counters.add(n_entries, n_real, counts)
-
-    if materialize_indices:
-        j = torch.arange(max_per_tile, dtype=torch.int32, device=dev)[None, :]
-        ids_padded = torch.cat([sorted_ids_c, sorted_ids_c.new_zeros(max_per_tile)])
-        idx = ids_padded[(starts[:, None] + j).long()]
-        idx = torch.where(j < counts[:, None], idx, torch.full_like(idx, -1))
-    else:
-        idx = None
+    counts = cap_counts(counts_full, max_per_tile, tile_budget)
 
     # slot <-> entry bijection: a real entry at sorted position p < l_cap lands
     # in slot (tile, p - starts[tile]) when that rank is under the per-tile
@@ -343,7 +401,7 @@ def build_tile_lists(
     slot_of_entry[sorted_entry[:l_cap]] = slot_of_pos[:l_cap]
 
     return TileLists(
-        indices=idx,
+        indices=None,
         counts=counts,
         overflow=torch.sum(counts_full - counts, dtype=torch.int32),
         clipped=torch.sum(was_clipped, dtype=torch.int32),
@@ -351,4 +409,4 @@ def build_tile_lists(
         sorted_ids=sorted_ids_c,
         starts=starts,
         entry_overflow=entry_overflow,
-    )
+    ), n_real

@@ -24,7 +24,8 @@ own.
 
 `BinningCounters` counts the binnings of the steps a trainer runs with them
 active (`counting`): the candidate (Gaussian, tile) entries, the entries that
-survive the footprint and conic cull, and those that land in a tile's list.
+survive the footprint and conic cull, those that land in a tile's list, and
+the tiles the binning kernels sort on their long-segment path.
 `SlabCounters` count, on a mesh that shards the Gaussians in depth slabs,
 the rows of each slab trade and the refine's rows sent to another shard;
 `splat.exchange` holds the mesh's exchanges (the slab trade, the slabs'
@@ -55,13 +56,15 @@ def span(name: str):
 
 class BinningCounters:
     """Binning's counts since the last `take`: `binnings` and `candidates`
-    (N * M per binning) on the host, the culled-in (`real`) and landed
-    entries on the device. A binning adds one reduction (the landed sum);
-    the device numbers fold into one int64 tensor every `FOLD` binnings and
-    when read. `read` and `take` wait for the device: call them where the
-    host waits anyway."""
+    (N * M per binning) on the host; on the device the culled-in (`real`)
+    and landed entries, and the tiles the binning kernels sort on their
+    long-segment path (`long_tiles`, `ops/cuda/bin_tiles.py`; 0 on the plain
+    route). A binning adds one reduction (the landed sum); the device numbers
+    fold into one int64 tensor every `FOLD` binnings and when read. `read`
+    and `take` wait for the device: call them where the host waits anyway."""
 
     FOLD = 64
+    DEVICE_KEYS = ("real", "landed", "long_tiles")
 
     def __init__(self):
         self.restore({})
@@ -70,31 +73,36 @@ class BinningCounters:
         """Start from `counts` (what `read` gave; {} for zero)."""
         self.binnings = int(counts.get("binnings", 0))
         self.candidates = int(counts.get("candidates", 0))
-        self._host = (int(counts.get("real", 0)), int(counts.get("landed", 0)))
-        self._pending: list[torch.Tensor] = []     # real, landed, real, landed, ...
-        self._acc: torch.Tensor | None = None      # (2,) int64: real, landed
+        self._host = [int(counts.get(k, 0)) for k in self.DEVICE_KEYS]
+        self._pending: list[torch.Tensor] = []     # DEVICE_KEYS of each binning in turn
+        self._acc: torch.Tensor | None = None      # (3,) int64: DEVICE_KEYS
 
-    def add(self, candidates: int, real: torch.Tensor, counts: torch.Tensor) -> None:
+    def add(self, candidates: int, real: torch.Tensor, counts: torch.Tensor,
+            long_tiles: torch.Tensor | None = None) -> None:
         """One binning of `candidates` entries: `real` (an int32 scalar
-        tensor) of them culled in, the capped per-tile `counts` landed."""
+        tensor) of them culled in, the capped per-tile `counts` landed, and
+        `long_tiles` (an int32 scalar tensor; None: 0) sorted on the long
+        path."""
         self.binnings += 1
         self.candidates += int(candidates)
-        self._pending += [real, torch.sum(counts, dtype=torch.int32)]
-        if len(self._pending) >= 2 * self.FOLD:
+        self._pending += [real, torch.sum(counts, dtype=torch.int32),
+                          real.new_zeros(()) if long_tiles is None else long_tiles]
+        if len(self._pending) >= len(self.DEVICE_KEYS) * self.FOLD:
             self._fold()
 
     def _fold(self) -> None:
         if self._pending:
-            sums = torch.stack(self._pending).view(-1, 2).sum(dim=0, dtype=torch.int64)
+            sums = (torch.stack(self._pending).view(-1, len(self.DEVICE_KEYS))
+                    .sum(dim=0, dtype=torch.int64))
             self._acc = sums if self._acc is None else self._acc.add_(sums)
             self._pending = []
 
     def read(self) -> dict[str, int]:
-        """{"binnings", "candidates", "real", "landed"} so far."""
+        """{"binnings", "candidates", "real", "landed", "long_tiles"} so far."""
         self._fold()
-        real, landed = self._acc.tolist() if self._acc is not None else (0, 0)
+        acc = self._acc.tolist() if self._acc is not None else [0] * len(self.DEVICE_KEYS)
         return {"binnings": self.binnings, "candidates": self.candidates,
-                "real": self._host[0] + real, "landed": self._host[1] + landed}
+                **{k: h + a for k, h, a in zip(self.DEVICE_KEYS, self._host, acc)}}
 
     def take(self) -> dict[str, int]:
         """`read`, then start again from zero."""

@@ -352,6 +352,87 @@ def test_project_sh_matches_plain_on_card(cuda_device, degree, active, vel, froz
     probe.hold_bwd(args + (grads, needs), got)
 
 
+BIN_CASES = {
+    # rows, live share, stack, image, tile, K, and what the case must reach
+    "tile16": dict(rows=1 << 16, img=(480, 270), k=64),
+    "tile16x8": dict(rows=1 << 16, img=(480, 270), tile=(16, 8), k=64),
+    "tile12x10": dict(rows=1 << 16, img=(480, 270), tile=(12, 10), k=64),
+    "strip_tensor_row0": dict(rows=1 << 15, img=(480, 270), strip=(96, 96.0, True)),
+    "strip_number_row0": dict(rows=1 << 15, img=(480, 270), strip=(64, 150.0, False)),
+    "capped_stream": dict(rows=1 << 15, img=(480, 270), cap_share=0.5),
+    "budget": dict(rows=1 << 15, img=(480, 270), k=96, budget=True),
+    "long_tiles": dict(rows=1 << 15, img=(480, 270), stack=9000),
+    "zero_rows": dict(rows=1 << 17, live=0.125, img=(480, 270)),
+    "equal_depths": dict(rows=1 << 15, img=(480, 270), ties=True),
+    "near_plane": dict(rows=1 << 14, img=(480, 270), near=True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(BIN_CASES))
+def test_bin_tiles_matches_plain_on_card(cuda_device, case):
+    """The binning kernels against the plain route (impl "torch") on the same
+    inputs, under the contract of scripts_dev/probe_bin_tiles_torch.py's
+    `hold`; two launches bitwise equal and tile_population equal."""
+    probe = _load_script("probe_bin_tiles_torch")
+    spec = BIN_CASES[case]
+    inp = probe.make_inputs(cuda_device, rows=spec["rows"], live=spec.get("live", 0.75),
+                            seed=7, stack=spec.get("stack", 0), img=spec["img"],
+                            tile=spec.get("tile", 16), k=spec.get("k", 2048))
+    if "strip" in spec:
+        strip_h, row0, as_tensor = spec["strip"]
+        inp.update(img_h=strip_h, full_img_h=spec["img"][1],
+                   row0_px=torch.tensor(row0, device=cuda_device) if as_tensor else row0)
+        inp["means2d"] = inp["means2d"] - torch.tensor([0.0, row0], device=cuda_device)
+    if "cap_share" in spec:
+        real = int(probe.check(inp)["real"])
+        inp["max_total_entries"] = int(real * spec["cap_share"]) + 1
+    if spec.get("budget"):
+        inp["tile_budget"] = lambda c: torch.clamp(96 - c // 3, 0, 96).to(c.dtype)
+    if spec.get("ties"):
+        inp["depths"] = torch.round(inp["depths"] * 2.0) / 2.0
+    if spec.get("near"):
+        bad = torch.tensor([[1e12, 5.0], [-1e12, 5.0], [float("nan"), 10.0], [20.0, 3e11],
+                            [float("inf"), -float("inf")], [24.0, 16.0], [30.0, 12.0]],
+                           device=cuda_device)
+        inp["means2d"][:7] = bad
+        inp["extents"][:7] = torch.tensor([[4.0, 4.0], [3.0, 3.0], [2.0, 2.0], [5.0, 1e12],
+                                           [2.0, 2.0], [3e10, 3e10], [60.0, 40.0]],
+                                          device=cuda_device)
+        inp["valid"][:7] = True
+    res = probe.check(inp)
+    assert res["launches"] == 2 and res["compared"] > 0
+    if case == "long_tiles":
+        assert res["long_tiles"] > 0 and res["max_tile_real"] > 4096
+    if case == "capped_stream":
+        assert res["compared"] == inp["max_total_entries"] < res["real"]
+    if case in ("tile16", "budget"):
+        assert res["landed"] < res["real"], "some tile must overflow"
+
+
+@pytest.mark.cuda
+def test_bin_tiles_on_the_training_path_on_card(cuda_device):
+    """A training step bins through the kernels once an anchor; the plain
+    route (impl "torch") does not launch them."""
+    from splat_tpu_torch.ops.cuda import bin_tiles
+
+    params, cams = _model(cuda_device)
+    cfg = sf.SplatfactoConfig(max_per_tile=K)
+    opt = trainer.Optimizer(params, trainer.TrainerConfig())
+    state = strategy.init_strategy_state(params.gaussians.means.shape[0], device=cuda_device)
+    gt = torch.full((IMG_H, IMG_W, 3), 0.5, device=cuda_device)
+    before = bin_tiles.tile_lists.launches
+    trainer.train_step(params, opt, state, cfg, cams, gt, 3000)
+    assert bin_tiles.tile_lists.launches - before == sf.resolve_blur_anchors(cfg, cams)
+    before = bin_tiles.tile_lists.launches, bin_tiles.population.launches
+    sf.binning_counts(params, cams, cfg)
+    with torch.no_grad():
+        sf.render_camera(params, cams, dataclasses.replace(cfg, impl="torch"), 3,
+                         torch.zeros(3, device=cuda_device))
+    assert (bin_tiles.tile_lists.launches, bin_tiles.population.launches) == (
+        before[0], before[1] + 1)
+
+
 @pytest.mark.cuda
 def test_train_step_on_card(cuda_device):
     params, cams = _model(cuda_device)

@@ -153,6 +153,7 @@ def test_binning_counters_on_refine_events(profiled):
         assert e["binnings"] == MODEL["blur_anchors"] * (len(steps) + len(evals & set(steps)))
         assert e["binning_candidates"] == e["binnings"] * cap * m
         assert 0 < e["binning_landed"] <= e["binning_real"] <= e["binning_candidates"]
+        assert e["binning_long_tiles"] == 0, "the plain route has no long-segment path"
         start = e["step"]
 
 
@@ -191,17 +192,22 @@ def test_counters_fold_and_take():
     c = profiling.BinningCounters()
     real = [torch.tensor(v, dtype=torch.int32) for v in (5, 0, 9)]
     counts = [torch.tensor(v, dtype=torch.int32) for v in ([1, 2], [0, 0], [4, 4])]
+    long_tiles = [torch.tensor(2, dtype=torch.int32), None, torch.tensor(1, dtype=torch.int32)]
     for _ in range(c.FOLD):              # past one fold
-        for r, k in zip(real, counts):
-            c.add(10, r, k)
+        for r, k, lt in zip(real, counts, long_tiles):
+            c.add(10, r, k, lt)
     n = 3 * c.FOLD
-    want = {"binnings": n, "candidates": 10 * n, "real": 14 * c.FOLD, "landed": 11 * c.FOLD}
+    want = {"binnings": n, "candidates": 10 * n, "real": 14 * c.FOLD, "landed": 11 * c.FOLD,
+            "long_tiles": 3 * c.FOLD}
     assert c.read() == want and c.take() == want
-    assert c.read() == {"binnings": 0, "candidates": 0, "real": 0, "landed": 0}
+    assert c.read() == {"binnings": 0, "candidates": 0, "real": 0, "landed": 0, "long_tiles": 0}
+    c.restore({k: v for k, v in want.items() if k != "long_tiles"})   # an older checkpoint
+    assert c.read()["long_tiles"] == 0
     c.restore(want)
     c.add(10, real[0], counts[0])
     assert c.read() == {"binnings": n + 1, "candidates": 10 * (n + 1),
-                        "real": 14 * c.FOLD + 5, "landed": 11 * c.FOLD + 3}
+                        "real": 14 * c.FOLD + 5, "landed": 11 * c.FOLD + 3,
+                        "long_tiles": 3 * c.FOLD}
 
 
 def test_step_timer_windows_tile_the_run(monkeypatch):
