@@ -429,6 +429,7 @@ class KernelCapture:
                 self.records[key] = ([copy(a) for a in args], dict(kwargs), copy(out))
 
     def __enter__(self):
+        from splat_tpu_torch.device import use_kernel
         from splat_tpu_torch.ops import cuda as kcuda
         from splat_tpu_torch.ops.cuda import project_sh as ps
         from splat_tpu_torch.ops.cuda import rasterize_kernels as rk
@@ -437,15 +438,15 @@ class KernelCapture:
             self._keep(("rasterize_fwd", args[2].shape[0] - 2, str(args[3])), args, kw, out)
 
         def on_bwd(args, kw, out):
-            if rk._use_kernel(kw.get("impl", "auto"), args[0]):
+            if use_kernel(kw.get("impl", "auto"), args[0]):
                 self._keep(("rasterize_bwd", args[2].shape[0] - 2, str(args[5])), args, kw, out)
 
         def on_seg(args, kw, out):
-            if rk._use_kernel(kw.get("impl", "auto"), args[0]):
+            if use_kernel(kw.get("impl", "auto"), args[0]):
                 self._keep(("seg_copy", args[2]), args, kw, out)
 
         def on_gather(args, kw, out):
-            if rk._use_kernel(kw.get("impl", "auto"), args[0]):
+            if use_kernel(kw.get("impl", "auto"), args[0]):
                 self._keep(("row_gather", kw.get("pad_rows", 0)), args, kw, out)
 
         def on_sh_fwd(args, kw, out):      # the kernel, always
@@ -1991,8 +1992,11 @@ def main() -> int:
     check(by_step[LOOP_STEPS]["tile_overflow_frac"] is not None, "the tile probe is recorded")
     for k, n in launches.items():
         per_step = 2 if k == "row_gather" else 1
-        check(n == per_step * (LOOP_STEPS + n_eval_steps),
-              f"{k} launched {per_step}x on each of the loop's train and eval-camera steps")
+        # each refine's tile probe projects through the step's own kernel
+        n_probes = len(events) if k == "project_sh_fwd" else 0
+        check(n == per_step * (LOOP_STEPS + n_eval_steps) + n_probes,
+              f"{k} launched {per_step}x on each of the loop's train and eval-camera steps"
+              + (f" and once on each of its {n_probes} tile probes" if n_probes else ""))
     check(all(float(v.detach().abs().sum()) > 0 for v in loop.params.eval_camera_opt.values()),
           "the eval cameras' corrections moved")
     check(after["psnr"] > before["psnr"], f"eval PSNR rises: {before['psnr']:.3f} -> "

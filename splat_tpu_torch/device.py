@@ -1,7 +1,10 @@
-"""Device choice for the port's entry points."""
+"""Device choice for the port's entry points, and which implementation a
+call takes on that device."""
 from __future__ import annotations
 
 import torch
+
+IMPLS = ("auto", "torch", "cuda")
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -17,6 +20,17 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "available; pass device='cpu' to run the plain PyTorch path"
         )
     return dev
+
+
+def use_kernel(impl: str, x: torch.Tensor) -> bool:
+    """Whether a call on `x` takes its hand-written kernel: always for impl
+    "cuda" (a ValueError on a CPU tensor), on a CUDA tensor for "auto",
+    never for "torch". Otherwise the caller runs its own plain version."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}")
+    if impl == "cuda" and not x.is_cuda:
+        raise ValueError(f"impl='cuda' needs CUDA tensors, got {x.device}")
+    return impl == "cuda" or (impl == "auto" and x.is_cuda)
 
 
 def scalar_tensor(x, device: torch.device, dtype=torch.float32) -> torch.Tensor:

@@ -29,8 +29,8 @@ import torch
 
 from ..cameras import optimizers as cam_opt
 from ..cameras.cameras import Cameras
-from ..device import resolve_device
-from ..ops import projection, rasterize, se3, sh, tiling
+from ..device import resolve_device, use_kernel
+from ..ops import projection, rasterize, se3, sh
 from ..ops.cuda.project_sh import project_sh
 from ..ops.reference import RenderOutput
 from ..ops.ssim import ssim as ssim_fn
@@ -274,10 +274,7 @@ def subframe_inputs(params: ModelParams, motion: CameraMotion, config: Splatfact
     cam = motion.camera
     Rt, pt = se3.se3_advance_c2w(motion.R0, motion.p0, motion.lin_vel, motion.ang_vel, t_s)
     vel = motion.use_motion
-    if config.impl == "cuda" and not g.means.is_cuda:
-        raise ValueError(f"impl='cuda' needs CUDA tensors, got {g.means.device}")
-    if config.impl != "torch" and g.means.is_cuda:
-        # the kernel pair; "auto" on CPU tensors keeps the plain route below
+    if use_kernel(config.impl, g.means):
         proj, colors = project_sh(
             g.means, g.scales_log, g.quats, g.features_dc, g.features_rest, Rt, pt,
             cam.fx[0], cam.fy[0], cam.cx[0], cam.cy[0], cam.width, cam.height,
@@ -448,28 +445,17 @@ def apply_black_level(img: torch.Tensor, config: SplatfactoConfig) -> torch.Tens
 def binning_counts(params: ModelParams, camera: Cameras, config: SplatfactoConfig) -> torch.Tensor:
     """Unclamped per-tile depth-list populations (T,) int32 at the
     mid-exposure pose, with the camera and velocity corrections, the motion
-    pad and the conic cull of the render's binning: `counts >
-    config.max_per_tile` is the overflow the next step's rasterizer drops."""
+    pad and the conic cull of the render's binning, through the step's own
+    projection route: `counts > config.max_per_tile` is the overflow the
+    next step's rasterizer drops."""
     with span("splat.bin"):
         g = params.gaussians
         motion = camera_motion(params, camera, config)
-        cam = motion.camera
-        R_cw = motion.R0.T
-        vel = motion.use_motion
-        proj = projection.project_gaussians(
-            g.means, torch.exp(g.scales_log), g.quats, R_cw, -torch.matmul(R_cw, motion.p0),
-            cam.fx[0], cam.fy[0], cam.cx[0], cam.cy[0], cam.width, cam.height,
-            lin_vel=motion.lin_vel if vel else None, ang_vel=motion.ang_vel if vel else None,
-        )
-        comp = (torch.ones_like(proj.compensations) if config.rasterize_mode == "classic"
-                else proj.compensations)
-        op_eff = torch.sigmoid(g.opacities_logit) * g.alive * comp * proj.valid.to(comp.dtype)
-        t_max = torch.amax(torch.abs(motion.eps)) + 0.5 * torch.abs(motion.rs_time)
-        return tiling.tile_population(
-            proj.means2d, proj.extents, proj.depths, proj.valid, cam.width, cam.height,
-            config.tile_size, config.max_tiles_per_gaussian,
-            radius_pad=torch.abs(proj.pix_vels) * t_max, conics=proj.conics, opacities=op_eff,
-            impl=config.impl,
+        proj, _ = subframe_inputs(params, motion, config, 0, motion.eps.new_zeros(()))
+        return rasterize.tile_population(
+            proj, torch.sigmoid(g.opacities_logit) * g.alive, motion.camera.width,
+            motion.camera.height, motion.eps, motion.rs_time, config.tile_size,
+            config.max_tiles_per_gaussian, impl=config.impl,
         )
 
 

@@ -16,7 +16,7 @@ import torch
 
 from ...utils.profiling import span
 from .. import tiling
-from ..projection import ProjectedGaussians
+from ..projection import ProjectedGaussians, effective_opacity
 from . import bin_tiles as _bin_tiles
 from .project_sh import project_sh_bwd, project_sh_fwd
 from .rasterize_kernels import NPARAM, PARAM_STRIDE, rasterize_bwd, rasterize_fwd
@@ -48,7 +48,7 @@ def pack_param_table(
     are zero so each row is 64 bytes and the kernels load it 16 bytes at a
     time. The log column carries no gradient (the opacity gradient flows
     through column 8)."""
-    op_eff = opacities * proj.compensations * proj.valid.to(colors.dtype)
+    op_eff = effective_opacity(proj, opacities)
     log_op = torch.log(torch.clamp(op_eff, min=1e-35)).detach()
     cols = [
         proj.means2d[:, 0], proj.means2d[:, 1],

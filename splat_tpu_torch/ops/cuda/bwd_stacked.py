@@ -26,11 +26,12 @@ from typing import NamedTuple
 
 import torch
 
+from ...device import use_kernel
 from ..reference import MAX_ALPHA, T_EPS
 from ..tiling import tile_wh
 from . import build
 from .rasterize_kernels import (LOG_MAX_ALPHA, LOG_THRESH, NOUT, WARP, _check_inputs,
-                                _tile_grid, _use_kernel, sample_hit_mask)
+                                _tile_grid, sample_hit_mask)
 
 MAX_THREADS = 1024     # the kernel's block size limit
 MAX_ROWS = 4           # stacked rows a thread may own (the kernel's instantiations)
@@ -206,9 +207,8 @@ def bwd_stacked(params: torch.Tensor, counts: torch.Tensor, scalars: torch.Tenso
     (`scalars` = [rs_time, row_offset, eps_0..eps_{S-1}]); tps: tiles a thread
     block works through in turn (the sums do not depend on it).
 
-    impl: "auto" (kernel on CUDA tensors, plain version on CPU tensors),
-    "torch" (plain version on any device) or "cuda" (kernel; raises on CPU)."""
-    if not _use_kernel(impl, params):
+    impl: `device.use_kernel`'s; otherwise `bwd_stacked_plain`."""
+    if not use_kernel(impl, params):
         return bwd_stacked_plain(params, counts, scalars, fwd_out, g_out, tile_size, tiles_x,
                                  img_h)
     n_samples = scalars.shape[0] - 2

@@ -13,6 +13,7 @@ import ctypes
 
 import torch
 
+from ...device import use_kernel
 from . import build
 
 VARIANTS = {"seq": "chunk_cumsum_seq_f32", "warp": "chunk_cumsum_warp_f32"}
@@ -28,19 +29,17 @@ def chunk_cumsum_plain(x: torch.Tensor) -> torch.Tensor:
 def chunk_cumsum(x: torch.Tensor, variant: str = "seq", impl: str = "auto") -> torch.Tensor:
     """Exclusive cumulative sum along axis 1 of a (T, C, NPIX) tensor.
 
-    variant: "seq" (any C) or "warp" (C in WARP_CHUNKS). impl: "auto" (kernel
-    on CUDA tensors, plain version on CPU tensors), "torch" or "cuda"."""
+    variant: "seq" (any C) or "warp" (C in WARP_CHUNKS). impl:
+    `device.use_kernel`'s; otherwise `chunk_cumsum_plain`."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}")
     if x.ndim != 3:
         raise ValueError(f"chunk_cumsum wants (T, C, NPIX), got {tuple(x.shape)}")
-    if impl == "torch" or (impl == "auto" and not x.is_cuda):
+    if not use_kernel(impl, x):
         return chunk_cumsum_plain(x)
-    if impl not in ("auto", "cuda"):
-        raise ValueError(f"unknown impl {impl!r}")
-    if not x.is_cuda or x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError(f"chunk_cumsum kernel wants a contiguous float32 CUDA tensor, got "
-                         f"{x.dtype} on {x.device}")
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"chunk_cumsum kernel wants a contiguous float32 tensor, got "
+                         f"{x.dtype}")
     n_blocks, chunk, npix = x.shape
     if variant == "warp" and chunk not in WARP_CHUNKS:
         raise ValueError(f"the warp variant lays C over 32 lanes: C must be one of "

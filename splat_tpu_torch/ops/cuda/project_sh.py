@@ -27,6 +27,7 @@ from types import SimpleNamespace
 
 import torch
 
+from ...device import use_kernel
 from ...utils.profiling import span
 from ..projection import COV2D_DILATION, DEFAULT_CLIP_THRESH, ProjectedGaussians
 from . import build
@@ -538,7 +539,7 @@ class _ProjectSH(torch.autograd.Function):
     @staticmethod
     def forward(ctx, means, scales_log, quats, features_dc, features_rest, cam, degree_active,
                 img_w, img_h, use_vel):
-        fwd = project_sh_fwd if means.is_cuda else project_sh_fwd_plain
+        fwd = project_sh_fwd if use_kernel("auto", means) else project_sh_fwd_plain
         outs = fwd(means, scales_log, quats, features_dc, features_rest, cam, degree_active,
                    img_w, img_h, use_vel)
         deg_t = degree_active if torch.is_tensor(degree_active) else None
@@ -562,7 +563,7 @@ class _ProjectSH(torch.autograd.Function):
         grads = tuple(g if g is not None else means.new_zeros(shape)
                       for g, shape in zip((g_m2, g_z, g_con, g_comp, g_pv, g_rgb), like.values()))
         with span("splat.project"):
-            bwd = project_sh_bwd if means.is_cuda else project_sh_bwd_plain
+            bwd = project_sh_bwd if use_kernel("auto", means) else project_sh_bwd_plain
             res = bwd(means, scales_log, quats, fdc, frest, cam, degree, img_w, img_h, use_vel,
                       grads, needs)
         return (*res, None, None, None, None)

@@ -26,7 +26,7 @@ import math
 
 import torch
 
-from ...device import scalar_tensor
+from ...device import scalar_tensor, use_kernel
 from ...utils.profiling import span
 from ..reference import ALPHA_THRESH, MAX_ALPHA, T_EPS
 from ..tiling import tile_wh
@@ -386,13 +386,6 @@ def _check_inputs(params, counts, scalars, tile_size, n_samples, what="rasterize
                          f"{MAX_TILE_PIXELS} pixels, got {sw}x{sh}")
 
 
-def _use_kernel(impl: str, t: torch.Tensor) -> bool:
-    """The dispatch rule: kernel for "cuda", and for "auto" on a CUDA tensor."""
-    if impl not in ("auto", "torch", "cuda"):
-        raise ValueError(f"unknown impl {impl!r}")
-    return impl == "cuda" or (impl == "auto" and t.is_cuda)
-
-
 def _launch_fwd(params, counts, scalars, tile_size, tiles_x, img_h):
     n_samples = scalars.shape[0] - 2
     _check_inputs(params, counts, scalars, tile_size, n_samples)
@@ -418,9 +411,9 @@ def rasterize_bwd(params: torch.Tensor, counts: torch.Tensor, scalars: torch.Ten
     """Gradient of `rasterize_fwd` with respect to its (T, K, 16) blocks,
     given the forward output and its cotangent (T, S, NOUT, npix).
 
-    impl as for rasterize_fwd: the kernel `csrc/rasterize_bwd.cu` for "cuda"
-    and for "auto" on CUDA tensors, `rasterize_bwd_plain` otherwise."""
-    if not _use_kernel(impl, params):
+    impl as for rasterize_fwd: the kernel `csrc/rasterize_bwd.cu` where
+    `device.use_kernel` says so, `rasterize_bwd_plain` otherwise."""
+    if not use_kernel(impl, params):
         return rasterize_bwd_plain(params, counts, scalars, fwd_out, g_out, tile_size,
                                    tiles_x, img_h)
     n_samples = scalars.shape[0] - 2
@@ -460,13 +453,13 @@ class _Composite(torch.autograd.Function):
     in JAX, where rs_time, row_offset and eps get zero cotangents."""
 
     @staticmethod
-    def forward(ctx, params, counts, scalars, tile_size, tiles_x, img_h, use_kernel):
-        if use_kernel:
+    def forward(ctx, params, counts, scalars, tile_size, tiles_x, img_h, kernel):
+        if kernel:
             out = _launch_fwd(params, counts, scalars, tile_size, tiles_x, img_h)
         else:
             out = rasterize_fwd_plain(params, counts, scalars, tile_size, tiles_x, img_h)
         ctx.save_for_backward(params, counts, scalars, out)
-        ctx.cfg = (tile_size, tiles_x, img_h, "cuda" if use_kernel else "torch")
+        ctx.cfg = (tile_size, tiles_x, img_h, "cuda" if kernel else "torch")
         return out
 
     @staticmethod
@@ -489,12 +482,11 @@ def rasterize_fwd(params: torch.Tensor, counts: torch.Tensor, rs_time,
     eps (S,) sub-frame times (None: one sample at 0); img_h the full height
     the rolling-shutter time is taken over.
 
-    impl: "auto" (kernel on CUDA tensors, plain version on CPU tensors),
-    "torch" (plain version on any device) or "cuda" (kernel; raises on CPU).
-    The backward (`rasterize_bwd`) takes the same route as the forward."""
+    impl: `device.use_kernel`'s; otherwise `rasterize_fwd_plain`. The
+    backward (`rasterize_bwd`) takes the same route as the forward."""
     scalars = scalar_vec(rs_time, row_offset, eps, params.device)
     return _Composite.apply(params, counts, scalars, tile_size, tiles_x, img_h,
-                            _use_kernel(impl, params))
+                            use_kernel(impl, params))
 
 
 rasterize_fwd.launches = 0

@@ -13,6 +13,7 @@ import ctypes
 
 import torch
 
+from ...device import use_kernel
 from . import build
 
 
@@ -45,14 +46,11 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor, impl: str = "auto",
 
     pad_rows > 0 (1-D idx only) appends that many zero rows to the output, so
     a caller that needs a padded stream gets it without a second copy.
-    impl: "auto" (kernel on CUDA tensors, plain version on CPU tensors),
-    "torch" (plain version on any device) or "cuda" (kernel; raises on CPU)."""
+    impl: `device.use_kernel`'s; otherwise `row_gather_plain`."""
     if pad_rows and idx.ndim != 1:
         raise ValueError("pad_rows needs 1-D indices")
-    if impl == "torch" or (impl == "auto" and not table.is_cuda):
+    if not use_kernel(impl, table):
         return row_gather_plain(table, idx, pad_rows)
-    if impl not in ("auto", "cuda"):
-        raise ValueError(f"unknown impl {impl!r}")
     _check_inputs(table, idx)
     if torch.is_grad_enabled() and table.requires_grad:
         raise NotImplementedError(

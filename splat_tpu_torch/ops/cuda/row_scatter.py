@@ -21,6 +21,7 @@ import functools
 
 import torch
 
+from ...device import use_kernel
 from . import build
 
 # the plan kernels' bucket table covers up to 2^24 destinations (with the dropped)
@@ -94,16 +95,11 @@ def _check_plan_args(idx: torch.Tensor, n_rows: int) -> None:
 
 def scatter_plan(idx: torch.Tensor, n_rows: int,
                  impl: str = "auto") -> tuple[torch.Tensor, torch.Tensor]:
-    """(order, offsets) as `scatter_plan_plain` makes them, bit for bit. On a
-    CUDA tensor (impl "auto" or "cuda") the plan kernels of
-    csrc/row_scatter.cu make it; on a CPU tensor, or with impl="torch", the
-    stable sort."""
-    if impl == "torch" or (impl == "auto" and not idx.is_cuda):
+    """(order, offsets) as `scatter_plan_plain` makes them, bit for bit: the
+    plan kernels of csrc/row_scatter.cu where `device.use_kernel(impl, idx)`
+    says so, else the stable sort."""
+    if not use_kernel(impl, idx):
         return scatter_plan_plain(idx, n_rows)
-    if impl not in ("auto", "cuda"):
-        raise ValueError(f"unknown impl {impl!r}")
-    if not idx.is_cuda:
-        raise ValueError(f"scatter_plan kernel needs a CUDA tensor, got {idx.device}")
     _check_plan_args(idx, n_rows)
     flat = idx.reshape(-1).contiguous()
     buf, order, offsets = _plan_buffers(flat.numel(), n_rows, idx.device)
@@ -125,11 +121,9 @@ def row_scatter(idx: torch.Tensor, g: torch.Tensor, n_rows: int, impl: str = "au
     idx: int32, any shape; g: float32 (*idx.shape, P). plan: a
     `scatter_plan(idx, n_rows)` made earlier (the same indices serve many
     calls); without one `scatter_plan` makes it first. impl as
-    `row_gather`'s."""
-    if impl == "torch" or (impl == "auto" and not g.is_cuda):
+    `row_gather`'s; otherwise `row_scatter_plain`."""
+    if not use_kernel(impl, g):
         return row_scatter_plain(idx, g, n_rows)
-    if impl not in ("auto", "cuda"):
-        raise ValueError(f"unknown impl {impl!r}")
     if not (g.is_cuda and idx.is_cuda and g.device == idx.device):
         raise ValueError(f"row_scatter kernel needs CUDA tensors on one device, got "
                          f"{g.device} and {idx.device}")

@@ -11,6 +11,7 @@ import ctypes
 
 import torch
 
+from ...device import use_kernel
 from . import build
 
 
@@ -44,12 +45,9 @@ def seg_copy(sp: torch.Tensor, starts: torch.Tensor, k_pad: int,
     """Dense (T, k_pad, P) per-tile blocks. sp must hold >= max(starts) + k_pad
     rows (the caller appends k_pad zero rows).
 
-    impl: "auto" (kernel on CUDA tensors, plain version on CPU tensors),
-    "torch" (plain version on any device) or "cuda" (kernel; raises on CPU)."""
-    if impl == "torch" or (impl == "auto" and not sp.is_cuda):
+    impl: `device.use_kernel`'s; otherwise `seg_copy_plain`."""
+    if not use_kernel(impl, sp):
         return seg_copy_plain(sp, starts, k_pad)
-    if impl not in ("auto", "cuda"):
-        raise ValueError(f"unknown impl {impl!r}")
     check_inputs(sp, starts, k_pad)
     if torch.is_grad_enabled() and sp.requires_grad:
         raise NotImplementedError(

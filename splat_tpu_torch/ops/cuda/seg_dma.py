@@ -14,6 +14,7 @@ import ctypes
 
 import torch
 
+from ...device import use_kernel
 from . import build
 from .seg_copy import check_inputs, seg_copy_plain
 
@@ -28,10 +29,8 @@ def seg_dma(sp: torch.Tensor, starts: torch.Tensor, k_pad: int, tps: int = 4, al
     floored to. tps * (k_pad + align) * P * 4 bytes must fit a block's shared
     memory, and P must be a multiple of 4 (16-byte copies). impl as
     `seg_copy`'s."""
-    if impl == "torch" or (impl == "auto" and not sp.is_cuda):
+    if not use_kernel(impl, sp):
         return seg_copy_plain(sp, starts, k_pad)
-    if impl not in ("auto", "cuda"):
-        raise ValueError(f"unknown impl {impl!r}")
     check_inputs(sp, starts, k_pad, name="seg_dma")
     p = sp.shape[1]
     if p % 4:

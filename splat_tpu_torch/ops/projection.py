@@ -31,6 +31,12 @@ class ProjectedGaussians(NamedTuple):
     extents: torch.Tensor        # (N, 2) 3-sigma axis-aligned half-extents
 
 
+def effective_opacity(proj: ProjectedGaussians, opacities: torch.Tensor) -> torch.Tensor:
+    """The opacity a binning culls by and the compositor draws with:
+    opacities * compensations * valid, in that order."""
+    return opacities * proj.compensations * proj.valid.to(opacities.dtype)
+
+
 def scale_quat_to_cov3d(scales: torch.Tensor, quats: torch.Tensor) -> torch.Tensor:
     """Sigma_3 = R(q) diag(s)^2 R(q)^T: scales (N,3), quats (N,4) -> (N,3,3).
     Quats are normalized here (raw optimizer parameters drift)."""

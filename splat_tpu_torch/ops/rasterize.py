@@ -6,7 +6,7 @@ and the tiles are assembled into images. Two routes share this:
 
   * impl "auto" / "cuda": `ops.cuda.rasterize_tiles` — the seg_copy fetch from
     the sorted stream and the forward compositing kernel (their plain
-    versions on CPU tensors under "auto");
+    versions where `device.use_kernel` says so);
   * impl "torch": `gather_tile_params` from the dense (T, K) id table and the
     compositor's plain forward and backward, on any device — an independent
     route to the same result and gradients, used to check the kernel route
@@ -24,10 +24,8 @@ from ..utils.profiling import span
 from . import tiling
 from .cuda import composite_output, pack_param_table, rasterize_tiles
 from .cuda.rasterize_kernels import rasterize_fwd
-from .projection import ProjectedGaussians
+from .projection import ProjectedGaussians, effective_opacity
 from .reference import RenderOutput
-
-IMPLS = ("auto", "torch", "cuda")
 
 
 class _GatherDense(torch.autograd.Function):
@@ -66,10 +64,12 @@ class _GatherDense(torch.autograd.Function):
             return d_slots[slot_of].sum(dim=1), None
 
 
-def gather_tile_params(lists: tiling.TileLists, table: torch.Tensor) -> torch.Tensor:
-    """Per-tile parameter blocks (T, K, 16) from the dense id table; empty
-    slots (id -1) take the table's zero pad row."""
-    return _GatherDense.apply(table, lists.indices)
+def gather_tile_params(lists: tiling.TileLists, table: torch.Tensor,
+                       max_per_tile: int) -> torch.Tensor:
+    """Per-tile parameter blocks (T, K, 16) from the dense id table
+    (`tiling.materialize`, K = max_per_tile); empty slots (id -1) take the
+    table's zero pad row."""
+    return _GatherDense.apply(table, tiling.materialize(lists, max_per_tile))
 
 
 def assemble_image(tiles: torch.Tensor, img_w: int, img_h: int, tile_size) -> torch.Tensor:
@@ -80,6 +80,16 @@ def assemble_image(tiles: torch.Tensor, img_w: int, img_h: int, tile_size) -> to
     img = tiles.reshape((th, tw, sh, sw) + chan)
     img = img.transpose(1, 2).reshape((th * sh, tw * sw) + chan)
     return img[:img_h, :img_w]
+
+
+def _binning_inputs(proj: ProjectedGaussians, opacities: torch.Tensor, eps: torch.Tensor,
+                    rolling_shutter_time) -> tuple[torch.Tensor, torch.Tensor]:
+    """What a binning sees besides the projection: the footprint's pad, the
+    largest screen shift over the exposure and readout, |pix_vel| *
+    (max|eps| + |rs|/2) per axis, and the effective opacity."""
+    rs = scalar_tensor(rolling_shutter_time, opacities.device, opacities.dtype)
+    t_max = torch.amax(torch.abs(eps)) + 0.5 * torch.abs(rs)
+    return torch.abs(proj.pix_vels) * t_max, effective_opacity(proj, opacities)
 
 
 def bin_tiles(
@@ -95,45 +105,49 @@ def bin_tiles(
     rs_full_height: int | None = None,
     rs_row_offset=0,
     max_total_entries: int = 0,
-    materialize_indices: bool = False,
     tile_budget=None,
     impl: str = "auto",
 ) -> tiling.TileLists:
-    """Bin once for all sub-frames: the footprint is padded by the largest
-    screen shift over the exposure and readout, |pix_vel| * (max|eps| + |rs|/2)
-    per axis, and the conic cull uses the effective opacity. tile_budget:
-    each tile's cap from its uncapped count (`tiling.build_tile_lists`).
-    impl: "auto" (the binning kernels on CUDA tensors), "torch" (the plain
-    route) or "cuda"."""
+    """Bin once for all sub-frames (`_binning_inputs`). tile_budget: each
+    tile's cap from its uncapped count (`tiling.build_tile_lists`). impl:
+    `device.use_kernel`'s (the binning kernels or the plain route)."""
     with span("splat.bin"):
-        rs = scalar_tensor(rolling_shutter_time, opacities.device, opacities.dtype)
-        t_max = torch.amax(torch.abs(eps)) + 0.5 * torch.abs(rs)
-        radius_pad = torch.abs(proj.pix_vels) * t_max
-        op_eff = opacities * proj.compensations * proj.valid.to(opacities.dtype)
+        radius_pad, op_eff = _binning_inputs(proj, opacities, eps, rolling_shutter_time)
         return tiling.build_tile_lists(
             proj.means2d, proj.extents, proj.depths, proj.valid,
             img_w, img_h, tile_size, max_per_tile, max_tiles_per_gaussian,
             radius_pad=radius_pad, conics=proj.conics, opacities=op_eff,
-            materialize_indices=materialize_indices,
-            row0_px=rs_row_offset, full_img_h=rs_full_height,
+            materialize_indices=False, row0_px=rs_row_offset, full_img_h=rs_full_height,
             max_total_entries=max_total_entries, tile_budget=tile_budget, impl=impl,
         )
+
+
+def tile_population(proj: ProjectedGaussians, opacities: torch.Tensor, img_w: int, img_h: int,
+                    eps: torch.Tensor, rolling_shutter_time, tile_size=16,
+                    max_tiles_per_gaussian: int = 64, impl: str = "auto") -> torch.Tensor:
+    """The uncapped per-tile populations (T,) int32 of `bin_tiles`' binning
+    of the same arguments (`tiling.tile_population`)."""
+    radius_pad, op_eff = _binning_inputs(proj, opacities, eps, rolling_shutter_time)
+    return tiling.tile_population(
+        proj.means2d, proj.extents, proj.depths, proj.valid, img_w, img_h, tile_size,
+        max_tiles_per_gaussian, radius_pad=radius_pad, conics=proj.conics, opacities=op_eff,
+        impl=impl,
+    )
 
 
 def _composite(proj, colors, opacities, img_w, img_h, eps, rs, tile_size,
                max_per_tile, max_tiles_per_gaussian, impl, rs_full_height,
                rs_row_offset, max_total_entries, tile_budget=None, **reduce_kw):
-    if impl not in IMPLS:
-        raise ValueError(f"unknown rasterize impl: {impl}")
     lists = bin_tiles(
         proj, opacities, img_w, img_h, eps, rs, tile_size, max_per_tile,
         max_tiles_per_gaussian, rs_full_height, rs_row_offset, max_total_entries,
-        materialize_indices=(impl == "torch"), tile_budget=tile_budget, impl=impl,
+        tile_budget=tile_budget, impl=impl,
     )
     if impl == "torch":
         tw, _ = tiling.num_tiles(img_w, img_h, tile_size)
         with span("splat.fetch"):
-            blocks = gather_tile_params(lists, pack_param_table(proj, colors, opacities))
+            blocks = gather_tile_params(lists, pack_param_table(proj, colors, opacities),
+                                        max_per_tile)
         out = rasterize_fwd(blocks, lists.counts, rs, tile_size, tw,
                             rs_full_height or img_h, row_offset=rs_row_offset,
                             eps=eps, impl="torch")

@@ -24,7 +24,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..device import scalar_tensor
+from ..device import scalar_tensor, use_kernel
 from ..utils import profiling
 
 TILE_SENTINEL = 2**30
@@ -233,17 +233,6 @@ def _expand_tile_entries(
     return tile_ids, was_clipped
 
 
-def _kernel_route(x: torch.Tensor, impl: str) -> bool:
-    """Whether a binning takes the kernels (`ops/cuda/bin_tiles.py`): impl
-    "auto" on CUDA tensors, or "cuda"; "torch" and CPU tensors take the plain
-    route."""
-    if impl not in ("auto", "torch", "cuda"):
-        raise ValueError(f"unknown impl {impl!r}")
-    if impl == "cuda" and not x.is_cuda:
-        raise ValueError(f"impl='cuda' needs CUDA tensors, got {x.device}")
-    return impl == "cuda" or (impl == "auto" and x.is_cuda)
-
-
 def tile_population(
     means2d, extents, depths, valid, img_w: int, img_h: int, tile_size=16,
     max_tiles_per_gaussian: int = 64, radius_pad=None, conics=None,
@@ -251,9 +240,10 @@ def tile_population(
     full_img_h: int | None = None, impl: str = "auto",
 ) -> torch.Tensor:
     """Uncapped per-tile entry counts (T,) int32: the same footprint and conic
-    cull as build_tile_lists, without the sort or the per-tile cap. On CUDA
-    tensors (impl "auto") the count kernel of `ops/cuda/bin_tiles.py`."""
-    if _kernel_route(means2d, impl):
+    cull as build_tile_lists, without the sort or the per-tile cap: the
+    count kernel of `ops/cuda/bin_tiles.py` where `device.use_kernel` says
+    so, else the plain route."""
+    if use_kernel(impl, means2d):
         from .cuda import bin_tiles
         return bin_tiles.population(
             means2d, extents, valid, img_w, img_h, tile_size, max_tiles_per_gaussian,
@@ -303,13 +293,13 @@ def build_tile_lists(
     trainer's step the binning adds its candidate, culled-in and landed
     entries to the active `profiling.BinningCounters`.
 
-    On CUDA tensors (impl "auto", or "cuda") the kernels of
+    Where `device.use_kernel(impl, means2d)` says so, the kernels of
     `ops/cuda/bin_tiles.py` build the same lists from the culled-in entries
     alone; sorted_ids then holds the id 0 past the real entries, which no
-    output reads. impl "torch" and CPU tensors take the plain route."""
+    output reads. Otherwise the plain route runs."""
     span_x, span_y = _spans(tile_size, max_tiles_per_gaussian)
     n_entries = means2d.shape[0] * span_x * span_y
-    if _kernel_route(means2d, impl):
+    if use_kernel(impl, means2d):
         from .cuda import bin_tiles
         lists, n_real, long_tiles = bin_tiles.tile_lists(
             means2d, extents, depths, valid, img_w, img_h, tile_size, max_per_tile,

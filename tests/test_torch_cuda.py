@@ -412,9 +412,13 @@ def test_bin_tiles_matches_plain_on_card(cuda_device, case):
 
 @pytest.mark.cuda
 def test_bin_tiles_on_the_training_path_on_card(cuda_device):
-    """A training step bins through the kernels once an anchor; the plain
-    route (impl "torch") does not launch them."""
+    """A training step bins through the kernels once an anchor; the refine's
+    tile probe (`binning_counts`) projects as the step does, through
+    `project_sh_fwd` once, and counts with the population kernel once, equal
+    to `rasterize.tile_population` over `subframe_inputs`' projection at
+    t = 0; the plain route (impl "torch") launches none of them."""
     from splat_tpu_torch.ops.cuda import bin_tiles
+    from splat_tpu_torch.ops.cuda.project_sh import project_sh_fwd
 
     params, cams = _model(cuda_device)
     cfg = sf.SplatfactoConfig(max_per_tile=K)
@@ -424,13 +428,31 @@ def test_bin_tiles_on_the_training_path_on_card(cuda_device):
     before = bin_tiles.tile_lists.launches
     trainer.train_step(params, opt, state, cfg, cams, gt, 3000)
     assert bin_tiles.tile_lists.launches - before == sf.resolve_blur_anchors(cfg, cams)
-    before = bin_tiles.tile_lists.launches, bin_tiles.population.launches
-    sf.binning_counts(params, cams, cfg)
+
+    def launches():
+        return (bin_tiles.tile_lists.launches, bin_tiles.population.launches,
+                project_sh_fwd.launches)
+
+    before = launches()
     with torch.no_grad():
-        sf.render_camera(params, cams, dataclasses.replace(cfg, impl="torch"), 3,
-                         torch.zeros(3, device=cuda_device))
-    assert (bin_tiles.tile_lists.launches, bin_tiles.population.launches) == (
-        before[0], before[1] + 1)
+        counts = sf.binning_counts(params, cams, cfg)
+    torch.cuda.synchronize()
+    assert launches() == (before[0], before[1] + 1, before[2] + 1)
+    with torch.no_grad():
+        motion = sf.camera_motion(params, cams, cfg)
+        proj, _ = sf.subframe_inputs(params, motion, cfg, 0, motion.eps.new_zeros(()))
+        g = params.gaussians
+        want = rasterize.tile_population(
+            proj, torch.sigmoid(g.opacities_logit) * g.alive, IMG_W, IMG_H, motion.eps,
+            motion.rs_time, cfg.tile_size, cfg.max_tiles_per_gaussian)
+    assert counts.dtype == torch.int32 and int(counts.max()) > 0
+    assert torch.equal(counts, want)
+    before = launches()
+    with torch.no_grad():
+        torch_cfg = dataclasses.replace(cfg, impl="torch")
+        sf.binning_counts(params, cams, torch_cfg)
+        sf.render_camera(params, cams, torch_cfg, 3, torch.zeros(3, device=cuda_device))
+    assert launches() == before
 
 
 @pytest.mark.cuda

@@ -1,7 +1,7 @@
 """The two kernels' plain versions against the JAX package's Pallas kernels
-(interpret mode on the CPU, as tests/test_pallas.py runs them) and the
-wrappers' dispatch rules. Each kernel against its plain version on the card
-is tests/test_torch_cuda.py.
+(interpret mode on the CPU, as tests/test_pallas.py runs them). Each kernel
+against its plain version on the card is tests/test_torch_cuda.py; the rule
+of `impl` at every entry is tests/test_torch_route.py.
 
 Tolerances: the compositor runs the same math as the TPU kernels but as a
 sequential per-pixel recurrence instead of a log-space matmul prefix, so
@@ -307,14 +307,3 @@ def test_seg_copy_plain_equals_pallas(k_pad):
     got = tseg.seg_copy(torch.tensor(np.array(sp)),
                         torch.tensor(np.array(lists.starts)), k_pad)
     np.testing.assert_array_equal(got.numpy(), want)
-
-
-def test_cuda_impl_raises_on_cpu_tensors():
-    sp = torch.zeros((40, 16))
-    starts = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(ValueError, match="CUDA"):
-        tseg.seg_copy(sp, starts, 8, impl="cuda")
-    with pytest.raises(ValueError, match="CUDA"):
-        trk.rasterize_fwd(torch.zeros((4, 8, 16)), starts, 0.0, 8, 2, 16, impl="cuda")
-    with pytest.raises(ValueError, match="impl"):
-        tseg.seg_copy(sp, starts, 8, impl="pallas")

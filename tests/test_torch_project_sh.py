@@ -13,7 +13,8 @@ gives NaN or inf (a compensation of exactly 0: g / (2 sqrt(0))), the closed
 form gives the same at the same entries. radii, extents and valid are equal.
 
 The dispatch: impl "auto" on CPU tensors is today's plain route, bitwise,
-forward and backward; impl "cuda" on CPU tensors raises.
+forward and backward (impl "cuda" on CPU tensors raising is a case of
+tests/test_torch_route.py).
 """
 import numpy as np
 import pytest
@@ -369,17 +370,3 @@ def test_auto_on_cpu_is_the_plain_route_bitwise(mode):
         assert torch.equal(ca, cb)
         for a, b in zip(ga, gb):
             assert torch.equal(a, b)
-
-
-def test_cuda_on_cpu_raises():
-    rng = np.random.default_rng(6)
-    params = _model(rng, n=8)
-    cfg = sf.SplatfactoConfig(impl="cuda")
-    motion = sf.camera_motion(params, _camera(), cfg)
-    with pytest.raises(ValueError, match="CUDA"):
-        sf.subframe_inputs(params, motion, cfg, 3, motion.eps[0])
-    g = params.gaussians
-    with pytest.raises(ValueError, match="CUDA"):
-        ps.project_sh_fwd(g.means.detach(), g.scales_log.detach(), g.quats.detach(),
-                          g.features_dc.detach(), g.features_rest.detach(), torch.zeros(22),
-                          3, W, H, True)
