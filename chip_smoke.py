@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, each of which raises (and the script exits nonzero) on failure:
-  1. build the ten CUDA kernel libraries with nvcc (in parallel) and print
+  1. build the eleven CUDA kernel libraries with nvcc (in parallel) and print
      the environment: card, power limit, torch / CUDA versions, TF32 flags;
   2. hold each kernel against its plain PyTorch version on the card at the
      main path's shapes (the binning of the first camera): seg_copy bitwise,
@@ -16,9 +16,15 @@ Phases, each of which raises (and the script exits nonzero) on failure:
      rows of `scripts_dev/probe_cull_torch.py` (S = 16, 16x16 and 16x8 tiles:
      fast motion, near-degenerate conics, opacities under the floor, rows
      grazing a warp's pixels), each bitwise equal over two launches, and the
-     per-warp cull never clearing a group where a pair composites; row_gather bitwise at both
-     of the training step's shapes (the sorted ids over the parameter table,
-     the entry slots over the slot gradients) and at its probe's; seg_dma in
+     per-warp cull never clearing a group where a pair composites; the
+     fetch pair (`scripts_dev/probe_tile_fetch_torch.py`) at camera 0's
+     binning (tile 16 and 16x8) and on a depth slab's receive buffer of 2^23
+     rows: the forward's counted rows bitwise its plain version and the
+     chain it replaced, the backward bitwise its plain version and over two
+     launches, reading no row past a count, within float32 rounding of the
+     chain's gather-and-sum; row_gather bitwise at the chain's two shapes
+     (the sorted ids over the parameter table, the entry slots over the slot
+     gradients; off the training path) and at its probe's; seg_dma in
      both variants (tps 1, 4, 8; align 8, 32, 128) bitwise on the same
      stream; row_scatter within 1e-5 of max|column| of a float64 sum and
      bitwise repeatable, and chunk_cumsum in both variants, at their probes'
@@ -51,7 +57,8 @@ Phases, each of which raises (and the script exits nonzero) on failure:
      1e-3 * max|leaf gradient|) and bitwise equal over two evaluations; then
      10 `train_step`s from step 3000 cycling the 4 cameras, counting
      launches: everything finite, the loss falling, the backward kernel
-     launched on every step and row_gather twice; then the step time and
+     launched on every step and the fetch pair once an anchor group (row_gather
+     and seg_copy not at all); then the step time and
      peak memory;
   5. the training loop at full width: `Trainer.run` for 200 steps on the
      same 100k Gaussians with 4 train and 2 eval cameras rendered from the
@@ -71,7 +78,9 @@ Phases, each of which raises (and the script exits nonzero) on failure:
      2's inputs (the probes' inputs for the probe kernels; the projection
      pair also beside the plain route it replaces; the binning at camera 0
      and on the 2^23-row buffer beside the plain route and torch.sort of
-     the culled-in entries' keys), beside the least
+     the culled-in entries' keys; the fetch pair at the same two binnings
+     and at the benchmark cell phone_mbrs.train's camera 0, beside its plain
+     versions and the chain it replaced), beside the least
      time the card could take (for the compositors the smaller of two counts:
      every live pixel of a tile, or only the (row, warp) groups where a pair
      composites; both printed, with the share of groups the cull keeps and
@@ -147,7 +156,7 @@ Phases, each of which raises (and the script exits nonzero) on failure:
      one more step of the fit's trainer (outside the counted path) has its
      launches recorded and held against the plain versions at phase 2's
      tolerances (the compositors at S = 3 and 2, rolling shutter, 1024 px;
-     seg_copy and row_gather bitwise); metrics.json has a finite lpips; LPIPS on the card within 1e-5 of the
+     the fetch pair bitwise); metrics.json has a finite lpips; LPIPS on the card within 1e-5 of the
      CPU's; `utils.trace_report` over a `torch.profiler` trace of five of
      the fit's steps lists the four path kernels. Prints each tool's
      seconds, steps/s, LPIPS's ms per eval image and the trace's table;
@@ -409,7 +418,7 @@ class _Recorder:
 class KernelCapture:
     """Inside `with`: the inputs and the output of the first kernel launch of
     each path kernel for each shape key (the compositors by sample count and
-    tile, seg_copy by K, row_gather by padding, the projection pair by SH
+    tile, the fetch pair by K, the projection pair by SH
     rows, velocities and, backward, the gradients asked for), copied as the
     driven path made them, from any host thread. `hold` then holds each
     against its plain version at phase 2's tolerances. Holding makes no
@@ -441,13 +450,13 @@ class KernelCapture:
             if use_kernel(kw.get("impl", "auto"), args[0]):
                 self._keep(("rasterize_bwd", args[2].shape[0] - 2, str(args[5])), args, kw, out)
 
-        def on_seg(args, kw, out):
+        def on_fetch_fwd(args, kw, out):
             if use_kernel(kw.get("impl", "auto"), args[0]):
-                self._keep(("seg_copy", args[2]), args, kw, out)
+                self._keep(("tile_fetch_fwd", args[4]), args, kw, out)
 
-        def on_gather(args, kw, out):
+        def on_fetch_bwd(args, kw, out):
             if use_kernel(kw.get("impl", "auto"), args[0]):
-                self._keep(("row_gather", kw.get("pad_rows", 0)), args, kw, out)
+                self._keep(("tile_fetch_bwd", args[0].shape[1]), args, kw, out)
 
         def on_sh_fwd(args, kw, out):      # the kernel, always
             self._keep(("project_sh_fwd", args[4].shape[1], args[9]), args, kw, out)
@@ -457,7 +466,8 @@ class KernelCapture:
                        out)
 
         self._patched = [(rk, "_launch_fwd", on_fwd), (rk, "rasterize_bwd", on_bwd),
-                         (kcuda, "_seg_copy", on_seg), (kcuda, "_row_gather", on_gather),
+                         (kcuda, "_tile_fetch_fwd", on_fetch_fwd),
+                         (kcuda, "_tile_fetch_bwd", on_fetch_bwd),
                          (ps, "project_sh_fwd", on_sh_fwd), (ps, "project_sh_bwd", on_sh_bwd)]
         self._saved = [(mod, name, getattr(mod, name)) for mod, name, _ in self._patched]
         for mod, name, record in self._patched:
@@ -474,15 +484,20 @@ class KernelCapture:
         return sorted(k[1:] for k in self.records if k[0] == name)
 
     def hold(self, stacked_shares) -> dict[str, float]:
-        """Every record against its plain version: seg_copy and row_gather
-        bitwise; the forward compositor at atol 1e-4 on rgb and T and 1e-3
-        on depth_acc, its cull missing no compositing group; the backward
-        within BWD_TOL of max|plain|; the projection pair against its plain
-        closed form at scripts_dev/probe_project_sh_torch.py's TOL (as a share
-        of max|plain|). Returns max|err| by kernel."""
+        """Every record against its plain version: the fetch pair bitwise
+        (the forward on each tile's counted rows); the forward compositor at
+        atol 1e-4 on rgb and T and 1e-3 on depth_acc, its cull missing no
+        compositing group; the backward within BWD_TOL of max|plain|; the
+        projection pair against its plain closed form at
+        scripts_dev/probe_project_sh_torch.py's TOL (as a share of
+        max|plain|). The compositors' plain versions get the blocks' counted
+        rows: the fetch kernel leaves the rows past a count unwritten, no
+        kernel reads them, and a plain version reads them with a zero weight
+        (0 * NaN is NaN). Returns max|err| by kernel."""
         from splat_tpu_torch.ops.cuda import rasterize_kernels as rk
-        from splat_tpu_torch.ops.cuda.row_gather import row_gather_plain
-        from splat_tpu_torch.ops.cuda.seg_copy import seg_copy_plain
+        from splat_tpu_torch.ops.cuda import tile_fetch as tf
+
+        counted_rows = load_probe("probe_tile_fetch_torch").counted_rows
 
         errs, said = {}, []
         for key, (args, kw, got) in sorted(self.records.items(), key=str):
@@ -492,16 +507,19 @@ class KernelCapture:
                 hold_fn = sh_probe.hold_fwd if name == "project_sh_fwd" else sh_probe.hold_bwd
                 err = hold_fn(args, got)
                 note = f"N {args[0].shape[0]}, {err:.3g} of max|plain|"
-            elif name == "seg_copy":
-                check(torch.equal(got, seg_copy_plain(*args[:3])),
+            elif name == "tile_fetch_fwd":
+                table, ids, starts, counts, k = args
+                check(torch.equal(counted_rows(got, counts), counted_rows(
+                    tf.tile_fetch_fwd_plain(table, ids, starts, k), counts)),
+                      f"{what} bitwise its plain version on the counted rows")
+                err, note = 0.0, f"{tuple(got.shape)}, {int(counts.sum())} rows bitwise"
+            elif name == "tile_fetch_bwd":
+                check(torch.equal(got, tf.tile_fetch_bwd_plain(*args)),
                       f"{what} bitwise its plain version")
                 err, note = 0.0, f"{tuple(got.shape)} bitwise"
-            elif name == "row_gather":
-                want = row_gather_plain(args[0], args[1], kw.get("pad_rows", 0))
-                check(torch.equal(got, want), f"{what} bitwise its plain version")
-                err, note = 0.0, f"{tuple(got.shape)} bitwise"
             elif name == "rasterize_fwd":
-                want, w = rk.rasterize_fwd_plain(*args, count_work=True)
+                want, w = rk.rasterize_fwd_plain(counted_rows(args[0], args[1]), *args[1:],
+                                                 count_work=True)
                 err_c = (got[:, :, [0, 1, 2, 4]] - want[:, :, [0, 1, 2, 4]]).abs().max().item()
                 err_d = (got[:, :, 3] - want[:, :, 3]).abs().max().item()
                 check(err_c <= 1e-4 and err_d <= 1e-3, f"{what} within tolerance "
@@ -511,7 +529,7 @@ class KernelCapture:
                 note = (f"T {got.shape[0]}, K {args[0].shape[1]}, max|err| rgb/T {err_c:.3g} "
                         f"depth {err_d:.3g}, {w['hit_pairs']} compositing pairs")
             else:
-                want = rk.rasterize_bwd_plain(*args)
+                want = rk.rasterize_bwd_plain(counted_rows(args[0], args[1]), *args[1:])
                 check(not got[:, :, rk.NPARAM - 1:].any(), f"{what}: zero columns")
                 shares = stacked_shares(got, want)
                 for kind, tol in BWD_TOL.items():
@@ -656,8 +674,9 @@ def render_tools_phase(root: Path, reset_counts, stacked_shares) -> dict:
     by_path, errs = {"matrix": matrix_launches}, {}
 
     def hold(capture, want_bwd: bool):
-        names = ("rasterize_fwd", "seg_copy", "row_gather", "project_sh_fwd")
-        for name in names + (("rasterize_bwd", "project_sh_bwd") if want_bwd else ()):
+        names = ("rasterize_fwd", "tile_fetch_fwd", "project_sh_fwd")
+        for name in names + (("rasterize_bwd", "tile_fetch_bwd", "project_sh_bwd") if want_bwd
+                             else ()):
             check(capture.kinds(name), f"{capture.label}: {name} launched and recorded")
         for name, err in capture.hold(stacked_shares).items():
             errs[name] = max(errs.get(name, 0.0), err)
@@ -683,7 +702,7 @@ def render_tools_phase(root: Path, reset_counts, stacked_shares) -> dict:
     check(blur_diff > 0.5, "the exposure shows: frames differ from the same path at blur_scale 0")
     by_path["video"] = kcuda.path_launches()
     n_frames = 2 * VIDEO_FPS * VIDEO_SECONDS
-    for k in ("seg_copy", "rasterize_fwd", "row_gather"):
+    for k in ("tile_fetch_fwd", "rasterize_fwd"):
         check(by_path["video"][k] >= n_frames, f"video: {k} launched for each of {n_frames} frames")
     hold(path_cap, want_bwd=False)
 
@@ -712,9 +731,9 @@ def render_tools_phase(root: Path, reset_counts, stacked_shares) -> dict:
         loaded.run(1)
     fwd_s = [k[0] for k in step_cap.kinds("rasterize_fwd")]
     bwd_s = [k[0] for k in step_cap.kinds("rasterize_bwd")]
-    check(fwd_s == bwd_s and len(step_cap.kinds("row_gather")) == 2,
-          "the step's forward and backward compositors at the same sample counts, row_gather at "
-          "both of its shapes")
+    check(fwd_s == bwd_s and step_cap.kinds("tile_fetch_fwd") == step_cap.kinds("tile_fetch_bwd"),
+          "the step's forward and backward compositors at the same sample counts, the fetch pair "
+          "forward and backward at the same K")
     print(f"matrix: one motion_blur step in this process at {loaded.model_config.blur_samples} "
           f"blur samples in {loaded.model_config.blur_anchors} anchor groups: compositors at S in "
           f"{sorted(set(fwd_s))}")
@@ -742,7 +761,7 @@ def render_tools_phase(root: Path, reset_counts, stacked_shares) -> dict:
         server.shutdown()
         server.server_close()
     by_path["viewer"] = kcuda.path_launches()
-    for k in ("seg_copy", "rasterize_fwd", "row_gather"):
+    for k in ("tile_fetch_fwd", "rasterize_fwd"):
         check(by_path["viewer"][k] >= 2, f"viewer: {k} launched for each of 2 render requests")
     hold(crop_cap, want_bwd=False)
 
@@ -1030,8 +1049,9 @@ def mesh_phase(params, cams, cfg, work: Path, scene_dir: Path, reset_counts, sta
     t.load_checkpoint(runs["mesh"] / "checkpoints" / f"step_{MESH_STEPS}")
     with KernelCapture("a mesh training step (world 1) at 1024 px") as cap:
         t.run(1)
-    check(len(cap.kinds("rasterize_bwd")) > 0 and len(cap.kinds("row_gather")) == 2,
-          "the mesh step's compositors and both row_gather shapes recorded")
+    check(len(cap.kinds("rasterize_bwd")) > 0 and len(cap.kinds("tile_fetch_fwd")) > 0
+          and cap.kinds("tile_fetch_fwd") == cap.kinds("tile_fetch_bwd"),
+          "the mesh step's compositors and the fetch pair, forward and backward, recorded")
     errs.update(cap.hold(stacked_shares))
     del t
     shutil.rmtree(work / "mesh_fits", ignore_errors=True)
@@ -1198,13 +1218,13 @@ def capture_phase(work: Path, scene_dir: Path, generated: dict, reset_counts,
     with KernelCapture("a capture fit step at 1024 px") as step_cap:
         fresh.run(1)
         torch.cuda.synchronize()
-    for k in ("rasterize_fwd", "rasterize_bwd", "seg_copy", "row_gather"):
+    for k in ("rasterize_fwd", "rasterize_bwd", "tile_fetch_fwd", "tile_fetch_bwd"):
         check(step_cap.kinds(k), f"{step_cap.label}: {k} launched and recorded")
     fwd_s = [k[0] for k in step_cap.kinds("rasterize_fwd")]
     bwd_s = [k[0] for k in step_cap.kinds("rasterize_bwd")]
-    check(fwd_s == bwd_s and len(step_cap.kinds("row_gather")) == 2,
-          "the step's forward and backward compositors at the same sample counts, row_gather at "
-          "both of its shapes")
+    check(fwd_s == bwd_s and step_cap.kinds("tile_fetch_fwd") == step_cap.kinds("tile_fetch_bwd"),
+          "the step's forward and backward compositors at the same sample counts, the fetch pair "
+          "forward and backward at the same K")
     print(f"capture: one fit step at {fresh.model_config.blur_samples} blur samples in "
           f"{fresh.model_config.blur_anchors} anchor groups: compositors at S in "
           f"{sorted(set(fwd_s))}")
@@ -1222,7 +1242,7 @@ def capture_phase(work: Path, scene_dir: Path, generated: dict, reset_counts,
     kernel_names = " ".join(k.name for k in trace_report.kernel_stats(
         trace_report.load_trace(trace_path)))
     print(f"capture: trace_report over {PROFILED_STEPS} of the fit's steps:\n{table}")
-    for k in ("rasterize_bwd", "rasterize_fwd", "seg_copy", "row_gather"):
+    for k in ("rasterize_bwd", "rasterize_fwd", "tile_fetch_fwd", "tile_fetch_bwd"):
         check(k in kernel_names, f"the trace report lists {k}")
 
     # LPIPS: cli.evaluate with weights drawn from a seed, and the card against the CPU
@@ -1277,6 +1297,7 @@ def main() -> int:
     from splat_tpu_torch.ops.cuda.row_scatter import row_scatter, scatter_plan
     from splat_tpu_torch.ops.cuda.seg_copy import seg_copy, seg_copy_plain
     from splat_tpu_torch.ops.cuda.seg_dma import seg_dma
+    from splat_tpu_torch.ops.cuda.tile_fetch import tile_fetch_bwd, tile_fetch_fwd
     from splat_tpu_torch.utils.profiling import nvidia_smi, time_cuda
 
     probes = {name: load_probe(name) for name in
@@ -1284,15 +1305,19 @@ def main() -> int:
                "probe_bwd_stacked_torch", "probe_project_sh_torch")}
     cull_probe = load_probe("probe_cull_torch")
     bin_probe = load_probe("probe_bin_tiles_torch")
+    fetch_probe = load_probe("probe_tile_fetch_torch")
     ptxas_report = load_probe("time_compositors_torch").ptxas_report
-    path_kernels = (seg_copy, rk.rasterize_fwd, rk.rasterize_bwd, row_gather, project_sh_fwd,
-                    project_sh_bwd, bin_tiles.tile_lists, bin_tiles.population)
+    path_kernels = (tile_fetch_fwd, rk.rasterize_fwd, rk.rasterize_bwd, tile_fetch_bwd,
+                    project_sh_fwd, project_sh_bwd, bin_tiles.tile_lists, bin_tiles.population)
     sh_probe = probes.pop("probe_project_sh_torch")
+    # off the path since the fetch pair replaced their chain: zeroed with the
+    # path's counters, so a path's count of them reads that path alone
+    chain_kernels = (seg_copy, row_gather)
     probe_kernels = (row_scatter, scatter_plan, seg_dma, chunk_cumsum, bwd_stacked)
     stacked_probe = probes["probe_bwd_stacked_torch"]
 
     def reset_counts():
-        for kern in path_kernels + probe_kernels:
+        for kern in path_kernels + chain_kernels + probe_kernels:
             kern.launches = 0
 
     def state_difference(a_dir: Path, b_dir: Path) -> tuple[list[str], float]:
@@ -1528,7 +1553,7 @@ def main() -> int:
     t0 = time.perf_counter()
     report = build.build(["seg_copy", "rasterize_fwd", "rasterize_bwd", "row_gather",
                           "row_scatter", "seg_dma", "chunk_cumsum", "bwd_stacked", "project_sh",
-                          "bin_tiles"])
+                          "bin_tiles", "tile_fetch"])
     print(f"build: {time.perf_counter() - t0:.2f} s wall for {sorted(report) or 'cached'}")
     for name, r in report.items():
         info = [ln.strip() for ln in r["log"].splitlines() if "registers" in ln or "spill" in ln]
@@ -1552,7 +1577,9 @@ def main() -> int:
         "bin_tiles count": ptxas_report(report["bin_tiles"]["log"], "count_kernel")
         if "bin_tiles" in report else "cached",
         "bin_tiles sort": ptxas_report(report["bin_tiles"]["log"], "sort_kernel")
-        if "bin_tiles" in report else "cached"}
+        if "bin_tiles" in report else "cached",
+        "tile_fetch": ptxas_report(report["tile_fetch"]["log"], "tile_fetch_")
+        if "tile_fetch" in report else "cached"}
     card = nvidia_smi("name,power.limit")
     max_clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     props = torch.cuda.get_device_properties(0)
@@ -1623,7 +1650,29 @@ def main() -> int:
             check(err_c <= 1e-4 and err_d <= 1e-3, f"rasterize_fwd {label} within tolerance")
             check(w["missed_groups"] == 0, f"the cull keeps every compositing group, {label}")
             errs["rasterize_fwd"] = max(errs.get("rasterize_fwd", 0.0), err_c, err_d)
-        lists_r, sp_r, eps_r, rs_r, _ = kernel_inputs((16, 8))
+        def fetch_inputs(lst, tbl, k_pad):
+            """The fetch probe's inputs on a binning: a seeded slot gradient
+            with NaN past each tile's count (no reader may touch them)."""
+            g = torch.randn((lst.counts.shape[0], k_pad, rk.PARAM_STRIDE), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(SEED + 5))
+            g[torch.arange(k_pad, device=dev)[None, :] >= lst.counts.long()[:, None]] = np.nan
+            return {"table": tbl, "lists": lst, "k": k_pad, "g": g}
+
+        def check_fetch(label, inp):
+            r = fetch_probe.check(inp)
+            errs["tile_fetch_fwd"] = errs["tile_fetch_bwd"] = 0.0
+            print(f"tile_fetch, {label}: {r['landed']} counted rows of {r['tiles']} tiles at K = "
+                  f"{r['k']} bitwise the plain version and the chain (stream {r['stream']} rows); "
+                  f"the backward over {r['rows']} rows bitwise its plain version and over two "
+                  f"launches, bitwise the chain's on {r['bitwise_chain_rows']} rows (at most two "
+                  f"landed entries; most a Gaussian: {r['max_landed_a_gaussian']}), within "
+                  f"float32 rounding elsewhere")
+            return r
+
+        fetch_cam = fetch_inputs(lists, table, K)
+        check_fetch("camera 0, tile 16", fetch_cam)
+        lists_r, sp_r, eps_r, rs_r, table_r = kernel_inputs((16, 8))
+        check_fetch("camera 0, tile 16x8", fetch_inputs(lists_r, table_r, K))
         blocks_r = seg_copy(sp_r, lists_r.starts, K, impl="cuda")
         check(torch.equal(blocks_r, seg_copy_plain(sp_r, lists_r.starts, K)),
               "seg_copy bitwise, 16x8 tiles")
@@ -1692,7 +1741,7 @@ def main() -> int:
                   f"per row {sh['row']:.3g}")
         print(f"bwd_stacked: max|err| vs plain {errs['bwd_stacked']:.3g}; tps "
               f"{list(stacked_errs['relerr'])} bitwise equal, two launches bitwise equal")
-        del lists_r, sp_r, blocks_r, got, want, stacked_plain
+        del lists_r, sp_r, blocks_r, table_r, got, want, stacked_plain
 
         # row_gather at the backward's shape: the slot gradients (T * K rows
         # and the zero row of dropped entries) at the binning's entry slots
@@ -1724,6 +1773,8 @@ def main() -> int:
         bin_res = {f"camera 0, tile {t}": bin_probe.check(inp) for t, inp in bin_inputs.items()}
         slab_inputs = bin_probe.make_inputs(dev, rows=1 << 23, live=0.375)
         bin_res["2^23 rows, 3/8 live"] = bin_probe.check(slab_inputs)
+        fetch_slab = fetch_probe.make_inputs(dev, slab_inputs, SEED + 6)
+        check_fetch("2^23 rows, 3/8 live", fetch_slab)
         for label, r in bin_res.items():
             print(f"bin_tiles vs the plain route, {label}: {r['real']} real entries of "
                   f"{r['live_rows']} live rows, {r['landed']} landed, sorted_ids compared at "
@@ -1760,13 +1811,13 @@ def main() -> int:
         first_ms = (time.perf_counter() - t0) * 1e3 / N_CAMERAS
         by_path = {"render": kcuda.path_launches()}
         render_launches = {k: v for k, v in by_path["render"].items()
-                           if k not in ("rasterize_bwd", "project_sh_bwd")}
+                           if k not in ("rasterize_bwd", "tile_fetch_bwd", "project_sh_bwd")}
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         print(f"render path: {N_CAMERAS} cameras, launches {render_launches}, "
               f"first pass {first_ms:.1f} ms/camera, peak memory {peak_gib:.2f} GiB")
         for k, n in render_launches.items():
             check(n > 0, f"{k} launched on the render path")
-        check(rk.rasterize_bwd.launches == project_sh_bwd.launches == 0,
+        check(rk.rasterize_bwd.launches == tile_fetch_bwd.launches == project_sh_bwd.launches == 0,
               "no backward launched by a render")
         for i, out in enumerate(images):
             check(out.rgb.shape == (RES, RES, 3), f"camera {i} image shape")
@@ -1861,8 +1912,11 @@ def main() -> int:
           f"max grad_count {int(state.grad_count.max())}")
     for k, n in step_launches.items():
         check(n >= TRAIN_STEPS, f"{k} launched on every training step")
-    check(step_launches["row_gather"] == 2 * TRAIN_STEPS,
-          "row_gather launched twice per training step (the stream, the slot gradients)")
+    check(step_launches["tile_fetch_fwd"] == step_launches["tile_fetch_bwd"]
+          == step_launches["bin_tiles"],
+          "the fetch pair launched once a binning (an anchor group), forward and backward")
+    check(seg_copy.launches == row_gather.launches == 0,
+          "the training step launches neither row_gather nor seg_copy")
     check(all(np.isfinite(losses)), "training losses finite")
     check(all(bool(torch.isfinite(p).all()) for p in opt.params), "parameters finite")
     check(all(bool(torch.isfinite(v).all()) for st in opt.adam.state.values()
@@ -1926,6 +1980,9 @@ def main() -> int:
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t0
     launches = by_path["loop"] = kcuda.path_launches()
+    chain_launches = {"seg_copy": seg_copy.launches, "row_gather": row_gather.launches}
+    check(not any(chain_launches.values()),
+          f"the training loop launches neither seg_copy nor row_gather: {chain_launches}")
     loop_peak_gib = torch.cuda.max_memory_allocated() / 2**30
     after = loop.evaluate()
     events = loop.refine_events
@@ -1991,11 +2048,10 @@ def main() -> int:
           f"({fullest[1]}), capped by {loop_tc.max_tile_capacity}")
     check(by_step[LOOP_STEPS]["tile_overflow_frac"] is not None, "the tile probe is recorded")
     for k, n in launches.items():
-        per_step = 2 if k == "row_gather" else 1
         # each refine's tile probe projects through the step's own kernel
         n_probes = len(events) if k == "project_sh_fwd" else 0
-        check(n == per_step * (LOOP_STEPS + n_eval_steps) + n_probes,
-              f"{k} launched {per_step}x on each of the loop's train and eval-camera steps"
+        check(n == LOOP_STEPS + n_eval_steps + n_probes,
+              f"{k} launched once on each of the loop's train and eval-camera steps"
               + (f" and once on each of its {n_probes} tile probes" if n_probes else ""))
     check(all(float(v.detach().abs().sum()) > 0 for v in loop.params.eval_camera_opt.values()),
           "the eval cameras' corrections moved")
@@ -2003,10 +2059,11 @@ def main() -> int:
                                           f"{after['psnr']:.3f} dB")
     with torch.no_grad():    # the three compositing kernels at the grown K, trained model
         k2 = loop.model_config.max_per_tile
-        lists2, sp2, eps2, _, _ = kernel_inputs(cfg.tile_size, loop.params, k2)
+        lists2, sp2, eps2, _, table2 = kernel_inputs(cfg.tile_size, loop.params, k2)
         blocks2 = seg_copy(sp2, lists2.starts, k2, impl="cuda")
         check(torch.equal(blocks2, seg_copy_plain(sp2, lists2.starts, k2)),
               f"seg_copy bitwise at K = {k2}")
+        check_fetch(f"the trained model, K = {k2}", fetch_inputs(lists2, table2, k2))
         got = rk.rasterize_fwd(blocks2, lists2.counts, rs, cfg.tile_size, tiles_x, RES, eps=eps2,
                                impl="cuda")
         want = rk.rasterize_fwd(blocks2, lists2.counts, rs, cfg.tile_size, tiles_x, RES,
@@ -2018,7 +2075,7 @@ def main() -> int:
               f"plain max|err| rgb/T {err_c:.3g}, depth {err_d:.3g}")
         check(err_c <= 1e-4 and err_d <= 1e-3, f"rasterize_fwd at K = {k2} within tolerance")
         check_bwd(f"tile 16, S=5, K = {k2}", blocks2, lists2, eps2, cfg.tile_size, tiles_x, RES)
-        del lists2, sp2, blocks2, got, want
+        del lists2, sp2, blocks2, table2, got, want
     del loop, scene, train_imgs, eval_imgs
 
     # phase 6: the probe entry points' timing loops (the path of the probe kernels)
@@ -2068,10 +2125,11 @@ def main() -> int:
         seg_bytes = (seg_rows_read + n_tiles * K) * sp.shape[1] * 4 + n_tiles * 4
         seg_bound = seg_bytes / hbm * 1e3
 
-        # row_gather at the train step's two shapes: the sorted ids over the
-        # parameter table (with the K pad rows), the entry slots over the slot
-        # gradients. Bytes: every output row written, the ids read, and each
-        # distinct source row read once (the sources fit the L2).
+        # row_gather at the chain's two shapes (the training path's before the
+        # fetch pair): the sorted ids over the parameter table (with the K pad
+        # rows), the entry slots over the slot gradients. Bytes: every output
+        # row written, the ids read, and each distinct source row read once
+        # (the sources fit the L2).
         def gather_times(src, ids, pad):
             n = ids.numel()
             nbytes = ((n + pad + int(torch.unique(ids).numel())) * src.shape[1] + n) * 4
@@ -2213,6 +2271,23 @@ def main() -> int:
               f"by bytes from {bt['bytes']} B; the plain route {bt['plain_ms']:.4f}; torch.sort "
               f"of the culled-in entries' int64 keys {bt['library_ms']:.4f})")
     del slab_inputs, bin_inputs
+    # the fetch pair also at the benchmark cell's own camera 0 (its trainer set
+    # up as perfbench/run.py sets it up; checked before it is timed)
+    fetch_bench = fetch_probe.make_inputs(dev, bin_probe.cell_inputs(dev, "phone_mbrs.train",
+                                                                     SEED), SEED + 7)
+    with torch.no_grad():
+        check_fetch("phone_mbrs.train's camera 0", fetch_bench)
+    fetch_times = {"phone_mbrs.train's camera 0": fetch_probe.bench(fetch_bench),
+                   f"camera 0, tile {cfg.tile_size}": fetch_probe.bench(fetch_cam),
+                   "2^23 rows, 3/8 live": fetch_probe.bench(fetch_slab)}
+    for label, ft in fetch_times.items():
+        print(f"tile_fetch, {label}: forward {ft['fwd_ms']:.4f} ms (bound {ft['fwd_bound_ms']:.4f} "
+              f"ms by bytes from {ft['fwd_bytes']} B; plain {ft['fwd_plain_ms']:.4f}; the chain "
+              f"it replaced, row_gather and seg_copy, {ft['fwd_chain_ms']:.4f}), backward "
+              f"{ft['bwd_ms']:.4f} ms (bound {ft['bwd_bound_ms']:.4f} from {ft['bwd_bytes']} B; "
+              f"plain {ft['bwd_plain_ms']:.4f}; the chain, cat, row_gather and sum, "
+              f"{ft['bwd_chain_ms']:.4f})")
+    del fetch_cam, fetch_slab, fetch_bench
     print(f"project_sh at {sh_probe.N} slots, degree {sh_probe.DEGREE}, velocities: forward "
           f"{sh_times['fwd_ms']:.4f} ms (bound {sh_times['fwd_bound_ms']:.4f} ms by bytes; plain "
           f"closed form {sh_times['fwd_plain_ms']:.4f}; the plain route "
@@ -2239,9 +2314,11 @@ def main() -> int:
             errs[kname] = max(errs[kname], err)
     shutil.rmtree(fit["work"], ignore_errors=True)
 
+    # seg_copy and row_gather are off the path (the fetch pair replaced their
+    # chain): their launches are the loop's (phase 5), 0
     kernels = [
         {"name": "seg_copy", "route": "cuda", "source": "splat_tpu_torch/ops/cuda/csrc/seg_copy.cu",
-         "replaces": "splat_tpu/ops/pallas/seg_copy.py:75", "launches": launches["seg_copy"],
+         "replaces": "splat_tpu/ops/pallas/seg_copy.py:75", "launches": chain_launches["seg_copy"],
          "max_abs_err": errs["seg_copy"], "ms": seg_ms, "plain_ms": seg_plain_ms,
          "bound_ms": seg_bound, "bound_by": "bytes", "library_ms": seg_lib_ms},
         {"name": "rasterize_fwd", "route": "cuda",
@@ -2263,10 +2340,11 @@ def main() -> int:
          "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_b["bound"]["ms"],
          "bound_by": bwd_b["bound"]["by"], "library_ms": None,
          "pixel_bound_ms": bwd_b["pixel"]["ms"], "cull_keep_share": keep_share},
-        # the train step's forward gather (the sorted ids over the parameter table)
+        # the chain's forward gather (the sorted ids over the parameter table)
         {"name": "row_gather", "route": "cuda",
          "source": "splat_tpu_torch/ops/cuda/csrc/row_gather.cu",
-         "replaces": "scripts_dev/probe_kernel_gather.py:59", "launches": launches["row_gather"],
+         "replaces": "scripts_dev/probe_kernel_gather.py:59",
+         "launches": chain_launches["row_gather"],
          "max_abs_err": errs["row_gather"], "ms": gather_fwd["ms"],
          "plain_ms": gather_fwd["plain_ms"], "bound_ms": gather_fwd["bound_ms"],
          "bound_by": "bytes", "library_ms": gather_fwd["library_ms"]},
@@ -2323,6 +2401,23 @@ def main() -> int:
          "replaces": None, "launches": launches["bin_tiles"], "max_abs_err": 0.0,
          **{k: bin_times[f"camera 0, tile {cfg.tile_size}"][k]
             for k in ("ms", "plain_ms", "bound_ms", "library_ms")}, "bound_by": "bytes"},
+        # the fetch pair at phone_mbrs.train's camera 0; chain_ms the chain it
+        # replaced (row_gather and seg_copy; cat, row_gather and the sum over
+        # M); the same at this run's camera 0 and on the depth slab's buffer
+        *({"name": f"tile_fetch_{d}", "route": "cuda",
+           "source": "splat_tpu_torch/ops/cuda/csrc/tile_fetch.cu",
+           "replaces": ["splat_tpu/ops/pallas/seg_copy.py:75",
+                        "scripts_dev/probe_kernel_gather.py:59"],
+           "launches": launches[f"tile_fetch_{d}"], "max_abs_err": errs[f"tile_fetch_{d}"],
+           "ms": ft[f"{d}_ms"], "plain_ms": ft[f"{d}_plain_ms"],
+           "chain_ms": ft[f"{d}_chain_ms"], "bound_ms": ft[f"{d}_bound_ms"],
+           "bound_by": "bytes", "library_ms": None,
+           **{at: {k: fetch_times[label][f"{d}_{k}"]
+                   for k in ("ms", "plain_ms", "chain_ms", "bound_ms")}
+              for at, label in (("at_camera_0", f"camera 0, tile {cfg.tile_size}"),
+                                ("at_2_23_rows", "2^23 rows, 3/8 live"))}}
+          for d in ("fwd", "bwd")
+          for ft in [fetch_times["phone_mbrs.train's camera 0"]]),
     ]
     by_path["fit"] = fit["launches"]
     by_path.update(tools["launches"])

@@ -1,14 +1,16 @@
 """The kernel path of the rasterizer: the counterpart of `splat_tpu/ops/pallas/__init__.py`.
 
 `rasterize_tiles` packs one parameter row per Gaussian, fetches each tile's
-contiguous run of the depth-sorted stream with `seg_copy`, composites every
-tile and sub-frame with `rasterize_fwd`, and reshapes to per-tile images.
+counted rows of the depth-sorted order straight from that table with
+`tile_fetch_fwd`, composites every tile and sub-frame with `rasterize_fwd`,
+and reshapes to per-tile images.
 
 Both steps carry their own backward, and neither scatter-adds: the
-compositor's is the `rasterize_bwd` kernel, and the fetch's maps each slot's
-gradient back to its Gaussian by a gather over the binning's slot <-> entry
-bijection (`TileLists.entry_slots`), as the JAX package's `_gather_table`
-does. So the route's backward is deterministic and uses no float atomics.
+compositor's is the `rasterize_bwd` kernel, and the fetch's (`tile_fetch_bwd`)
+maps each slot's gradient back to its Gaussian by a gather over the
+binning's slot <-> entry bijection (`TileLists.entry_slots`), as the JAX
+package's `_gather_table` does. So the route's backward is deterministic and
+uses no float atomics.
 """
 from __future__ import annotations
 
@@ -21,18 +23,19 @@ from . import bin_tiles as _bin_tiles
 from .project_sh import project_sh_bwd, project_sh_fwd
 from .rasterize_kernels import NPARAM, PARAM_STRIDE, rasterize_bwd, rasterize_fwd
 from .row_gather import row_gather as _row_gather
-from .seg_copy import seg_copy as _seg_copy
+from .tile_fetch import tile_fetch_bwd as _tile_fetch_bwd
+from .tile_fetch import tile_fetch_fwd as _tile_fetch_fwd
 
 
 def path_launches() -> dict[str, int]:
     """This process's launches of the kernels on the render and training
     path (each wrapper counts its own; zero where only plain versions ran):
-    the fetch and compositing kernels, the projection pair (a backward
-    launch is the per-Gaussian kernel with, where the camera takes a
+    the fetch pair and the compositing kernels, the projection pair (a
+    backward launch is the per-Gaussian kernel with, where the camera takes a
     gradient, its fixed-order sum over blocks) and the binning (a launch is
     one binning's count, scan, scatter and sort)."""
-    return {"seg_copy": _seg_copy.launches, "rasterize_fwd": rasterize_fwd.launches,
-            "rasterize_bwd": rasterize_bwd.launches, "row_gather": _row_gather.launches,
+    return {"tile_fetch_fwd": _tile_fetch_fwd.launches, "rasterize_fwd": rasterize_fwd.launches,
+            "rasterize_bwd": rasterize_bwd.launches, "tile_fetch_bwd": _tile_fetch_bwd.launches,
             "project_sh_fwd": project_sh_fwd.launches,
             "project_sh_bwd": project_sh_bwd.launches,
             "bin_tiles": _bin_tiles.tile_lists.launches}
@@ -67,47 +70,45 @@ def sorted_stream(table: torch.Tensor, sorted_ids: torch.Tensor, k_pad: int,
     """Table rows in sorted (tile, depth) order plus k_pad zero rows, so every
     tile's k_pad-row window is in bounds: (L + k_pad, 16). On CUDA tensors the
     `row_gather` kernel reads the int32 ids as they are and writes the pad
-    rows into the same buffer."""
+    rows into the same buffer. The render and training path do not build
+    it (`gather_table` fetches from the table); `seg_copy` over it is the
+    input the compositor probes and tests use."""
     return _row_gather(table, sorted_ids.contiguous(), impl=impl, pad_rows=k_pad)
 
 
 class _GatherTable(torch.autograd.Function):
-    """Forward: the sorted stream (`row_gather`) and `seg_copy`. Backward: the gather form of
-    `_gather_table_bwd`: the slot gradients, plus one zero row for dropped
-    entries, are gathered at `entry_slots` (one per candidate entry, N * M)
-    and summed over each Gaussian's M entries in a fixed order."""
+    """Forward: `tile_fetch_fwd`, each tile's counted rows from the table.
+    Backward: `tile_fetch_bwd`, the gather form of `_gather_table_bwd`: each
+    Gaussian's landed slot gradients (`entry_slots`, M per Gaussian) summed in
+    a fixed order, dropped entries skipped, the pad row zero."""
 
     @staticmethod
-    def forward(ctx, table, sorted_ids, starts, entry_slots, k_pad, impl):
+    def forward(ctx, table, sorted_ids, starts, counts, entry_slots, k_pad, impl):
         ctx.save_for_backward(entry_slots)
         ctx.n_rows = table.shape[0]
         ctx.impl = impl
-        return _seg_copy(sorted_stream(table, sorted_ids, k_pad, impl), starts, k_pad, impl=impl)
+        return _tile_fetch_fwd(table, sorted_ids.contiguous(), starts.contiguous(),
+                               counts.contiguous(), k_pad, impl=impl)
 
     @staticmethod
     def backward(ctx, g):
         (entry_slots,) = ctx.saved_tensors
-        n = ctx.n_rows - 1                                      # table row n = pad
-        width = g.shape[2]
         with span("splat.fetch"):
-            d_slots = torch.cat([g.reshape(-1, width), g.new_zeros((1, width))])
-            d_table = g.new_zeros((ctx.n_rows, width))
-            if n > 0:
-                # (N * M, 16): each candidate entry's slot gradient
-                d_entries = _row_gather(d_slots, entry_slots.contiguous(), impl=ctx.impl)
-                d_table[:n] = d_entries.reshape(n, -1, width).sum(dim=1)
-        return d_table, None, None, None, None, None
+            d_table = _tile_fetch_bwd(g, entry_slots.contiguous(), ctx.n_rows, impl=ctx.impl)
+        return d_table, None, None, None, None, None, None
 
 
 def gather_table(table: torch.Tensor, lists: tiling.TileLists, k_pad: int,
                  impl: str = "auto") -> torch.Tensor:
     """Per-tile parameter blocks (T, k_pad, 16) straight from sorted order
-    (the port of the JAX package's `_gather_table`). Rows past a tile's count
-    are its neighbours' rows; the compositor masks them by count and gives
-    them zero gradient. k_pad must be the binning's max_per_tile, the K of
-    `lists.entry_slots`."""
-    return _GatherTable.apply(table, lists.sorted_ids, lists.starts, lists.entry_slots,
-                              k_pad, impl)
+    (the port of the JAX package's `_gather_table`). Only each tile's first
+    counts[t] rows are part of the result: past them the kernel writes
+    nothing (the plain version leaves the stream's next rows). No kernel
+    reads those rows, so they get no gradient; the compositors' plain
+    versions must be given the counted rows alone. k_pad must be the
+    binning's max_per_tile, the K of `lists.entry_slots`."""
+    return _GatherTable.apply(table, lists.sorted_ids, lists.starts, lists.counts,
+                              lists.entry_slots, k_pad, impl)
 
 
 def composite_output(out: torch.Tensor, tile_size, reduce_mean: bool = False,

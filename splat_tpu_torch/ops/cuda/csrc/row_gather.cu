@@ -2,10 +2,10 @@
 //
 // Replaces: scripts_dev/probe_kernel_gather.py, `kernel_gather` (kernel body
 // `gather_kernel`), which walks each tile's index list and copies one table
-// row per step from a VMEM-resident table. The training path needs the same
-// function twice per step: the depth-sorted parameter stream
-// `table[sorted_ids]` and, in the backward, the slot gradients at
-// `entry_slots`.
+// row per step from a VMEM-resident table. Its shapes here are the
+// depth-sorted parameter stream `table[sorted_ids]` and the slot gradients at
+// `entry_slots`; the render and training path fetch with csrc/tile_fetch.cu,
+// which reads only the landed rows.
 //
 // Bound on this card: bytes. R * P * 4 bytes are written, the R indices and
 // the distinct table rows are read; the table (a few MB) stays in the 50 MB

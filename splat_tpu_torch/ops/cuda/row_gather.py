@@ -1,5 +1,7 @@
 """Row gather: the port of `scripts_dev/probe_kernel_gather.py`'s
-`kernel_gather`, and the fetch the training path runs twice per step.
+`kernel_gather`. It builds the sorted stream (`ops.cuda.sorted_stream`) that
+the compositor probes and tests cut with `seg_copy`; the render and training
+path fetch with `tile_fetch.py` instead.
 
 `row_gather(table, idx)` is `table[idx]` for a (N, P) float32 table and int32
 indices of any shape: (*idx.shape, P). On a CUDA tensor it launches

@@ -4,9 +4,9 @@ Projected Gaussians are binned once per call (`ops.tiling`), each tile's
 parameter rows are fetched, every tile is composited for all S sub-frames,
 and the tiles are assembled into images. Two routes share this:
 
-  * impl "auto" / "cuda": `ops.cuda.rasterize_tiles` — the seg_copy fetch from
-    the sorted stream and the forward compositing kernel (their plain
-    versions where `device.use_kernel` says so);
+  * impl "auto" / "cuda": `ops.cuda.rasterize_tiles` — the tile_fetch pair
+    (each tile's counted rows from the packed table) and the compositing
+    kernels (their plain versions where `device.use_kernel` says so);
   * impl "torch": `gather_tile_params` from the dense (T, K) id table and the
     compositor's plain forward and backward, on any device — an independent
     route to the same result and gradients, used to check the kernel route

@@ -29,7 +29,13 @@ kernel route against the
 plain route (impl="torch"):
 each leaf within 1e-3 * max|leaf gradient|; and the kernel route's
 gradients are bitwise repeatable (no float atomics anywhere).
-row_gather and both seg_dma variants move bits (exact). The reference renderer
+row_gather and both seg_dma variants move bits (exact). The fetch pair
+(`tile_fetch`): the forward's counted rows bitwise its plain version and the
+chain it replaces (row_gather, then seg_copy), rows past a count left
+unwritten and read by neither compositor (a NaN-filled buffer gives both
+compositors' outputs bitwise); the backward bitwise its plain version (a
+float32 sum in a fixed order), bitwise over two launches, and within float32
+rounding of the chain's gather-and-sum. The reference renderer
 (`ops/reference.py`, tile emulation on) holds the kernel route's images to
 the CPU test's 1e-5. row_scatter adds each
 destination row's contributors in index order: bitwise repeatable, and within
@@ -69,6 +75,7 @@ from splat_tpu_torch.ops.cuda.row_gather import row_gather, row_gather_plain
 from splat_tpu_torch.ops.cuda.row_scatter import row_scatter, scatter_plan, scatter_plan_plain
 from splat_tpu_torch.ops.cuda.seg_copy import seg_copy, seg_copy_plain
 from splat_tpu_torch.ops.cuda.seg_dma import seg_dma
+from splat_tpu_torch.ops.cuda.tile_fetch import tile_fetch_bwd, tile_fetch_fwd
 from splat_tpu_torch.parallel import launch, sharding
 
 IMG_W, IMG_H = 96, 64
@@ -162,9 +169,11 @@ def test_seg_copy_unaligned_width_on_card(cuda_device):
 def test_render_camera_cuda_matches_torch_route(cuda_device):
     params, cams = _model(cuda_device)
     cfg = sf.SplatfactoConfig(max_per_tile=K)
-    before = (seg_copy.launches, rk.rasterize_fwd.launches)
+    before = (tile_fetch_fwd.launches, rk.rasterize_fwd.launches, seg_copy.launches,
+              row_gather.launches)
     out = sf.render_camera(params, cams, cfg, 3, torch.zeros(3, device=cuda_device))
-    assert seg_copy.launches > before[0] and rk.rasterize_fwd.launches > before[1]
+    assert tile_fetch_fwd.launches > before[0] and rk.rasterize_fwd.launches > before[1]
+    assert (seg_copy.launches, row_gather.launches) == before[2:], "the chain is off the path"
     ref = sf.render_camera(params, cams, dataclasses.replace(cfg, impl="torch"), 3,
                            torch.zeros(3, device=cuda_device))
     for name in ("rgb", "alpha", "transmittance"):
@@ -297,16 +306,113 @@ def test_cuda_path_gradients_match_torch_route(cuda_device):
     cfg = sf.SplatfactoConfig(max_per_tile=K)
     gt = torch.rand((IMG_H, IMG_W, 3), generator=torch.Generator(device=cuda_device).manual_seed(1),
                     device=cuda_device)
-    before = (rk.rasterize_bwd.launches, row_gather.launches)
+    before = (rk.rasterize_bwd.launches, tile_fetch_fwd.launches, tile_fetch_bwd.launches,
+              row_gather.launches, seg_copy.launches)
     loss, grads = _train_grads(params, cams, cfg, gt)
     assert rk.rasterize_bwd.launches > before[0]
-    assert row_gather.launches == before[1] + 2, "the stream gather and its backward"
+    anchors = sf.resolve_blur_anchors(cfg, cams)
+    assert (tile_fetch_fwd.launches, tile_fetch_bwd.launches) == (
+        before[1] + anchors, before[2] + anchors), "the fetch pair, once an anchor group"
+    assert (row_gather.launches, seg_copy.launches) == before[3:], "the chain is off the path"
     loss2, grads2 = _train_grads(params, cams, cfg, gt)
     assert torch.equal(loss, loss2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
     loss_t, grads_t = _train_grads(params, cams, dataclasses.replace(cfg, impl="torch"), gt)
     torch.testing.assert_close(loss, loss_t, rtol=1e-5, atol=0)
     for a, b in zip(grads, grads_t):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-3 * b.abs().max().item())
+
+
+def _fetch_inputs(dev, tile_size, cap=0, seed=0):
+    """The fetch probe's inputs from `_model`'s binning: the packed table,
+    the lists (the stream capped at half the real entries where cap is
+    "half") and a seeded slot gradient with NaN past each tile's count."""
+    params, cams = _model(dev)
+    cfg = sf.SplatfactoConfig(tile_size=tile_size, max_per_tile=K)
+    motion = sf.camera_motion(params, cams, cfg)
+    with torch.no_grad():
+        proj, colors = sf.subframe_inputs(params, motion, cfg, 3, motion.eps.mean())
+        opac = torch.sigmoid(params.gaussians.opacities_logit)
+        args = (proj, opac, IMG_W, IMG_H, motion.eps, motion.rs_time, tile_size, K, 16)
+        lists = rasterize.bin_tiles(*args)
+        if cap == "half":
+            lists = rasterize.bin_tiles(
+                *args, max_total_entries=int(lists.counts.sum() + lists.overflow) // 2)
+        table = kcuda.pack_param_table(proj, colors, opac)
+        g = torch.randn((lists.counts.shape[0], K, table.shape[1]),
+                        generator=_seeded(dev, seed), device=dev)
+        g[torch.arange(K, device=dev)[None, :] >= lists.counts.long()[:, None]] = float("nan")
+    return {"table": table, "lists": lists, "k": K, "g": g}, motion
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_size,cap", [(16, 0), ((16, 8), 0), (8, 0), (16, "half")])
+def test_tile_fetch_matches_plain_on_card(cuda_device, tile_size, cap):
+    """The fetch pair against its plain versions and the chain it replaces
+    (scripts_dev/probe_tile_fetch_torch.py's `check`): the forward's counted
+    rows bitwise, the backward bitwise and the same bits over two launches,
+    no row past a count read, the chain's backward within float32 rounding
+    (bitwise where at most two entries of a Gaussian land)."""
+    probe = _load_script("probe_tile_fetch_torch")
+    inp, _ = _fetch_inputs(cuda_device, tile_size, cap)
+    lists = inp["lists"]
+    assert int(lists.counts.max()) == K
+    if cap:
+        assert int(lists.entry_overflow) > 0
+        assert bool((lists.starts + K > lists.sorted_ids.shape[0]).any())
+    res = probe.check(inp)
+    assert res["launches"] == [2, 2] and res["max_landed_a_gaussian"] >= 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,live,cap_share", [(1 << 20, 0.375, 0.0), (1 << 18, 0.75, 0.5)])
+def test_tile_fetch_on_a_slab_buffer_on_card(cuda_device, rows, live, cap_share):
+    """The same checks at 1920x1080, K = 2048, on a depth slab's receive
+    buffer (zero rows in four buckets), and on a capped stream."""
+    probe = _load_script("probe_tile_fetch_torch")
+    bin_probe = _load_script("probe_bin_tiles_torch")
+    bin_inp = bin_probe.make_inputs(cuda_device, rows=rows, live=live, seed=3)
+    if cap_share:
+        bin_inp["max_total_entries"] = int(bin_probe.check(bin_inp)["real"] * cap_share)
+    res = probe.check(probe.make_inputs(cuda_device, bin_inp, seed=4))
+    assert res["launches"] == [2, 2] and res["landed"] > 0
+    if cap_share:
+        assert res["stream"] == bin_inp["max_total_entries"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_size,n_samples", [(16, 5), ((16, 8), 3), (8, 1)])
+def test_tile_fetch_poisoned_tail_on_card(cuda_device, tile_size, n_samples):
+    """The forward's block buffer is filled with NaN before the kernel writes
+    it: rows past each tile's count stay NaN, and both compositors' outputs
+    and gradients are bitwise the parent route's (blocks from seg_copy over
+    the sorted stream), so no reader touches the unwritten rows."""
+    inp, motion = _fetch_inputs(cuda_device, tile_size)
+    table, lists = inp["table"], inp["lists"]
+    parent = seg_copy(kcuda.sorted_stream(table, lists.sorted_ids, K), lists.starts, K)
+    poison = torch.full(parent.shape, float("nan"), device=cuda_device)
+    ptr = poison.data_ptr()
+    del poison
+    blocks = tile_fetch_fwd(table, lists.sorted_ids, lists.starts, lists.counts, K)
+    assert blocks.data_ptr() == ptr, "the allocator hands the poisoned buffer back"
+    past = torch.arange(K, device=cuda_device)[None, :] >= lists.counts.long()[:, None]
+    assert bool(past.any()) and bool(torch.isnan(blocks[past]).all())
+    counted_rows = _load_script("probe_tile_fetch_torch").counted_rows
+    assert torch.equal(counted_rows(blocks, lists.counts), counted_rows(parent, lists.counts))
+    eps = torch.linspace(-0.03, 0.03, n_samples, device=cuda_device)
+    tiles_x = tiling.num_tiles(IMG_W, IMG_H, tile_size)[0]
+    fwd = rk.rasterize_fwd(blocks, lists.counts, motion.rs_time, tile_size, tiles_x, IMG_H,
+                           eps=eps, impl="cuda")
+    fwd_parent = rk.rasterize_fwd(parent, lists.counts, motion.rs_time, tile_size, tiles_x,
+                                  IMG_H, eps=eps, impl="cuda")
+    assert torch.equal(fwd, fwd_parent) and bool(torch.isfinite(fwd).all())
+    scalars = rk.scalar_vec(motion.rs_time, 0.0, eps, cuda_device)
+    g_out = torch.randn(fwd.shape, generator=_seeded(cuda_device, 2), device=cuda_device)
+    d = rk.rasterize_bwd(blocks, lists.counts, scalars, fwd, g_out, tile_size, tiles_x, IMG_H)
+    d_parent = rk.rasterize_bwd(parent, lists.counts, scalars, fwd_parent, g_out, tile_size,
+                                tiles_x, IMG_H)
+    assert torch.equal(d, d_parent) and bool(torch.isfinite(d).all())
+    d_table = tile_fetch_bwd(d, lists.entry_slots, table.shape[0])
+    assert torch.equal(d_table, tile_fetch_bwd(d_parent, lists.entry_slots, table.shape[0]))
 
 
 def _load_script(name):

@@ -26,6 +26,8 @@ from splat_tpu_torch.ops.cuda.row_gather import row_gather
 from splat_tpu_torch.ops.cuda.row_scatter import row_scatter, scatter_plan
 from splat_tpu_torch.ops.cuda.seg_copy import check_inputs, seg_copy
 from splat_tpu_torch.ops.cuda.seg_dma import seg_dma
+from splat_tpu_torch.ops.cuda.tile_fetch import (check_bwd_inputs, check_fwd_inputs,
+                                                 tile_fetch_bwd, tile_fetch_fwd)
 
 W, H, TILE = 40, 24, 8
 N = 48
@@ -109,10 +111,17 @@ def _entries():
     cum = torch.tensor(rng.normal(size=(3, 32, 8)), dtype=torch.float32)
     bin_args = (proj.means2d, proj.extents, proj.depths, proj.valid, W, H, TILE)
     g = params.gaussians
+    table = kcuda.pack_param_table(proj, colors, opac)
+    fetch_args = (table, lists.sorted_ids, lists.starts, lists.counts, 16)
+    slot_args = (blocks, lists.entry_slots, table.shape[0])
     return {
         "seg_copy": (lambda impl: seg_copy(sp, starts, 8, impl=impl),
                      lambda: check_inputs(sp, starts, 8)),
         "row_gather": (lambda impl: row_gather(sp, idx, impl=impl), None),
+        "tile_fetch_fwd": (lambda impl: tile_fetch_fwd(*fetch_args, impl=impl),
+                           lambda: check_fwd_inputs(*fetch_args)),
+        "tile_fetch_bwd": (lambda impl: tile_fetch_bwd(*slot_args, impl=impl),
+                           lambda: check_bwd_inputs(*slot_args)),
         "seg_dma": (lambda impl: seg_dma(sp, starts, 8, impl=impl), None),
         "chunk_cumsum": (lambda impl: chunk_cumsum(cum, impl=impl), None),
         "scatter_plan": (lambda impl: scatter_plan(idx, 10, impl=impl), None),
@@ -143,10 +152,10 @@ def _entries():
     }
 
 
-ENTRIES = ("seg_copy", "row_gather", "seg_dma", "chunk_cumsum", "scatter_plan", "row_scatter",
-           "rasterize_fwd", "rasterize_bwd", "bwd_stacked", "build_tile_lists",
-           "tiling.tile_population", "rasterize.tile_population", "rasterize",
-           "subframe_inputs")
+ENTRIES = ("seg_copy", "row_gather", "tile_fetch_fwd", "tile_fetch_bwd", "seg_dma",
+           "chunk_cumsum", "scatter_plan", "row_scatter", "rasterize_fwd", "rasterize_bwd",
+           "bwd_stacked", "build_tile_lists", "tiling.tile_population",
+           "rasterize.tile_population", "rasterize", "subframe_inputs")
 
 
 def _leaves(out):
